@@ -10,7 +10,7 @@ the drop counter fires (`on_drop="warn"` here) and the demo re-arms the
 ladder — the counter is the contract, never silent loss.
 
 Run (CPU): python examples/animate.py --frames 8 --cpu
-Run (TPU): python examples/animate.py --frames 24 --width 1920 \
+Run (GPU): python examples/animate.py --frames 24 --width 1920 \
                --height 1080 --depth 6 --spheres 256
 """
 
@@ -53,6 +53,9 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from raytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from raytpu.config import RenderConfig
     from raytpu.image import write_ppm

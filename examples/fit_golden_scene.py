@@ -84,6 +84,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from raytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+
     from raytpu.config import RenderConfig
     from raytpu.grad import exposure_image_loss
     from raytpu.scene import default_scene

@@ -2,7 +2,7 @@
 by gradient descent against a rendered target image.
 
 Run (CPU): python examples/fit_scene.py --steps 60
-Run (TPU): python examples/fit_scene.py --steps 200 --width 160 --height 120
+Run (GPU): python examples/fit_scene.py --steps 200 --width 160 --height 120
 """
 
 import argparse
@@ -35,15 +35,17 @@ def main():
                          "(scene replicated, pixel grid sharded, scene "
                          "cotangents psum'd)")
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "jnp", "pallas", "wavefront"],
-                    help="gradient backend: fused dense kernels, the "
-                         "differentiable wavefront (large scenes), or the "
-                         "jnp autodiff tracer")
+                    choices=["auto", "jnp", "wavefront"],
+                    help="gradient backend: the differentiable wavefront "
+                         "(large scenes) or the jnp autodiff tracer")
     ap.add_argument("--checkpoint", default=None,
                     help="path to save/restore fit state every 10 steps")
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from raytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from raytpu.config import RenderConfig
     from raytpu.grad import fit_scene, image_loss

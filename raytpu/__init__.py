@@ -1,12 +1,12 @@
-"""raytpu — TPU-native differentiable Whitted ray tracer.
+"""raytpu — differentiable Whitted ray tracer in JAX.
 
-A brand-new JAX / XLA / Pallas / pjit framework with the capabilities of the
-OpenCL/C++ reference renderer ``snowzurfer/raytracer-gamma`` (see SURVEY.md):
-camera ray generation over a supersampled pixel grid, ray-sphere intersection,
-matte shading with shadow rays and point lights, and Fresnel
-reflection/refraction traced through a fixed-depth bounce loop — re-designed
-TPU-first (batched SoA math on the VPU/MXU, masked lanes instead of branches,
-`shard_map` over a device mesh instead of an NDRange launch) rather than ported.
+A JAX / XLA / Pallas framework with the capabilities of the OpenCL/C++
+reference renderer ``snowzurfer/raytracer-gamma`` (see SURVEY.md): camera ray
+generation over a supersampled pixel grid, ray-sphere intersection, matte
+shading with shadow rays and point lights, and Fresnel reflection/refraction
+traced through a fixed-depth bounce loop — re-designed for accelerators
+(batched math, masked lanes instead of branches, `shard_map` over a device
+mesh instead of an NDRange launch) rather than ported.
 
 Public surface:
     raytpu.scene        Scene / Spheres / Lights / Medium pytrees, builders
@@ -16,7 +16,7 @@ Public surface:
     raytpu.image        tone mapping + PPM I/O (golden-image contract)
     raytpu.render       jit/shard_map render drivers + timing
     raytpu.grad         loss/gradient helpers + finite-difference checker
-    raytpu.kernels      Pallas TPU kernels for the hot path
+    raytpu.kernels      the GPU forward kernel and the wavefront tracer
     raytpu.parallel     device mesh / sharding / distributed init
 """
 
@@ -27,9 +27,7 @@ from raytpu.trace import render_image, trace_rays, camera_rays
 from raytpu.render import (DroppedRaysError, render_single, render_sharded,
                            render_timed)
 from raytpu.grad import (fit_scene, image_loss, loss_and_grad,
-                         loss_and_grad_pallas, loss_and_grad_pallas_packed,
-                         loss_and_grad_sharded, loss_and_grad_wavefront,
-                         pack_target)
+                         loss_and_grad_sharded, loss_and_grad_wavefront)
 from raytpu.image import tone_map, write_ppm, read_ppm, max_colour_value
 
 __version__ = "0.1.0"
@@ -41,9 +39,8 @@ __all__ = [
     "load_scene", "save_scene",
     "render_image", "trace_rays", "camera_rays",
     "render_single", "render_sharded", "render_timed", "DroppedRaysError",
-    "fit_scene", "image_loss", "loss_and_grad", "loss_and_grad_pallas",
-    "loss_and_grad_pallas_packed", "loss_and_grad_sharded",
-    "loss_and_grad_wavefront", "pack_target",
+    "fit_scene", "image_loss", "loss_and_grad", "loss_and_grad_sharded",
+    "loss_and_grad_wavefront",
     "tone_map", "write_ppm", "read_ppm", "max_colour_value",
     "__version__",
 ]

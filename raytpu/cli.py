@@ -62,10 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print timing/Mrays/s stats as JSON")
     p.add_argument("--backend", choices=["auto", "jnp", "pallas", "wavefront"],
                    default="auto",
-                   help="compute path: fused Pallas TPU kernel, wavefront "
-                        "tracer, or the XLA-fused jnp tracer (auto on TPU: "
-                        "wavefront for >=128 spheres at depth >=4, else "
-                        "pallas)")
+                   help="compute path: the fused GPU forward kernel "
+                        "(pallas), the wavefront tracer, or the XLA-fused "
+                        "jnp tracer (auto on the GPU: wavefront when "
+                        "spheres x 2^depth >= 512, else pallas; jnp on "
+                        "other platforms)")
     p.add_argument("--chunk-rays", type=int, default=None,
                    help="wavefront backend: camera rays per scan chunk "
                         "(bounds live memory; default: the auto ladder's "
@@ -82,9 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-drops", action="store_true",
                    help="exit with an error if the wavefront drops any "
                         "live rays (capacity overflow) instead of warning")
-    p.add_argument("--streams", type=int, default=None,
-                   help="wavefront backend: independent chunk pipelines "
-                        "per scan step")
     p.add_argument("--list-devices", action="store_true")
     p.add_argument("--device", type=int, default=None,
                    help="render on a single specific device index "
@@ -162,6 +160,9 @@ def main(argv=None) -> int:
         import jax
         jax.config.update("jax_platforms", "cpu")
 
+    from raytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+
     if args.list_devices:
         from raytpu.parallel.mesh import describe_devices
         print(describe_devices())
@@ -186,8 +187,7 @@ def main(argv=None) -> int:
         scene = jax.device_put(scene, devices[args.device])
 
     wf_opts = {k: v for k, v in (("chunk_rays", args.chunk_rays),
-                                 ("capacity_factor", args.capacity_factor),
-                                 ("streams", args.streams))
+                                 ("capacity_factor", args.capacity_factor))
                if v is not None}
 
     on_drop = "raise" if args.strict_drops else "warn"

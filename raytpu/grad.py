@@ -87,69 +87,14 @@ def exposure_image_loss(scene, cfg: RenderConfig, target_flat, gid=None):
     return jnp.mean(r * r)
 
 
-def loss_and_grad_pallas(scene, cfg: RenderConfig, target_flat):
-    """Loss + gradients via the fused Pallas forward/backward kernels
-    (raytpu.kernels.trace_pallas) — the fast TPU path (interpret-mode
-    sanitizer off-TPU).  Sphere count bounded by the kernels'
-    BWD_MAX_SPHERES."""
-    interpret = jax.default_backend() != "tpu"
-    return _loss_and_grad_pallas(scene, cfg, target_flat, interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
-def _loss_and_grad_pallas(scene, cfg: RenderConfig, target_flat, interpret):
-    from raytpu.kernels.trace_pallas import render_pixels_pallas_ad
-
-    def loss(s):
-        err = render_pixels_pallas_ad(s, cfg, interpret) - target_flat
-        return jnp.mean(err * err)
-
-    return jax.value_and_grad(loss)(scene)
-
-
-def pack_target(cfg: RenderConfig, target_flat):
-    """(P, 3) target -> the fused kernel's native (3, rows, LANES) tiled
-    layout.  Pack once per fit, outside the step: the packed training step
-    (loss_and_grad_pallas_packed) then runs with no lane-padded (P, 3)
-    arrays or transposes at all."""
-    from raytpu.kernels.trace_pallas import pack_pixel_tiles
-    return pack_pixel_tiles(target_flat, cfg.num_pixels)
-
-
-def loss_and_grad_pallas_packed(scene, cfg: RenderConfig, target_packed):
-    """Loss + gradients with the whole step in the kernel's native tiled
-    layout — the fast training step on TPU.  target_packed comes from
-    pack_target; the loss equals image_loss up to float reduction order."""
-    interpret = jax.default_backend() != "tpu"
-    return _loss_and_grad_pallas_packed(scene, cfg, target_packed, interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
-def _loss_and_grad_pallas_packed(scene, cfg: RenderConfig, target_packed,
-                                 interpret):
-    from raytpu.kernels.trace_pallas import render_tiles_pallas_ad, tile_mask
-
-    count = cfg.num_pixels
-    mask = tile_mask(count)  # zero the tail-pad lanes out of the loss
-
-    def loss(s):
-        out = render_tiles_pallas_ad(s, cfg, interpret)
-        err = (out - target_packed) * mask
-        return jnp.sum(err * err) / (3.0 * count)
-
-    return jax.value_and_grad(loss)(scene)
-
-
 def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
                             chunk_rays: int = 1 << 17,
                             capacity_factor: float = 2.0,
                             on_drop: str = "raise",
-                            return_info: bool = False,
-                            compact_mode: str = "auto"):
+                            return_info: bool = False):
     """Loss + gradients via the differentiable wavefront tracer — the
-    large-scene/deep-depth training path (per-level custom-VJP kernels;
-    no sphere-count cap from one-hot unrolls, dead subtrees skipped at
-    per-ray granularity).  Interpret-mode sanitizer off-TPU.
+    large-scene/deep-depth training path (XLA autodiff through the jnp
+    level bodies; dead subtrees dropped at per-ray granularity).
 
     `capacity_factor` is the same frame-time lever as in
     render_pixels_wavefront — the AD scan carries the same level arrays
@@ -163,41 +108,30 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
     capacity study), which is exactly why the forward counter alone is
     not enough.  fit_scene auto-escalates capacity on drops.
 
-    With `return_info`, returns (loss, grads, {'dropped': int}).
-    chunk_rays defaults to the measured training optimum 128K
-    (BASELINE.md round-4 training study: 1M-ray chunks cost ~2.5x)."""
+    With `return_info`, returns (loss, grads, {'dropped': int})."""
     from raytpu.render import _report_drops
 
-    interpret = jax.default_backend() != "tpu"
     (loss, dropped), grads = _loss_and_grad_wavefront(
-        scene, cfg, target_flat, interpret, chunk_rays, capacity_factor,
-        compact_mode)
+        scene, cfg, target_flat, chunk_rays, capacity_factor)
     n = _report_drops(dropped, on_drop)
     if return_info:
         return loss, grads, dict(dropped=n)
     return loss, grads
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret",
-                                             "chunk_rays",
-                                             "capacity_factor",
-                                             "compact_mode"))
+@functools.partial(jax.jit, static_argnames=("cfg", "chunk_rays",
+                                             "capacity_factor"))
 def _loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
-                             interpret, chunk_rays,
-                             capacity_factor=2.0, compact_mode="auto"):
+                             chunk_rays, capacity_factor=2.0):
     from raytpu.kernels.wavefront import render_pixels_wavefront
 
     def loss(s):
         img, info = render_pixels_wavefront(s, cfg, chunk_rays=chunk_rays,
                                             capacity_factor=capacity_factor,
-                                            interpret=interpret, ad=True,
-                                            compact_mode=compact_mode,
-                                            return_info=True)
+                                            ad=True, return_info=True)
         err = img - target_flat
         # The drop counter rides value_and_grad as aux so no AD caller
-        # can lose it (VERDICT r4 weak #1: the counter used to be
-        # discarded here, leaving silent gradient bias one moving
-        # sphere away).
+        # can lose it (a dropped ray biases the gradient silently).
         return jnp.mean(err * err), info["dropped"]
 
     return jax.value_and_grad(loss, has_aux=True)(scene)
@@ -205,8 +139,7 @@ def _loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
 
 @functools.lru_cache(maxsize=16)
 def _sharded_grad_fn(cfg: RenderConfig, mesh, backend: str = "jnp",
-                     interpret: bool = False, interleave: bool = False,
-                     wf_opts: tuple = ()):
+                     interleave: bool = False, wf_opts: tuple = ()):
     """Compile the distributed gradient.
 
     The forward render is shard_mapped (pixels block-sharded, scene
@@ -215,48 +148,29 @@ def _sharded_grad_fn(cfg: RenderConfig, mesh, backend: str = "jnp",
     scene-parameter cotangents over the pixel axis — which XLA's scheduler
     can overlap with the backward bounce tree.
 
-    backend="pallas" puts the fused forward+backward kernel pair inside the
-    shard_map body (each shard renders/differentiates its own pixel block via
-    the per-shard offset); "wavefront" does the same with the differentiable
-    wavefront tracer (large scenes / deep trees — no sphere-count cap);
-    "jnp" uses the XLA-autodiff tracer.  `interpret` runs the kernels in
-    interpret mode (the off-TPU sanitizer path).  `wf_opts` is the
-    wavefront tuning dict as a sorted item tuple (hashable cache key).
+    backend="wavefront" puts the differentiable wavefront tracer inside the
+    shard_map body (each shard renders/differentiates its own pixel window
+    via the per-shard offset; large scenes / deep trees); "jnp" uses the
+    XLA-autodiff dense tracer.  `wf_opts` is the wavefront tuning dict as a
+    sorted item tuple (hashable cache key).
 
     Every backend's body returns (pixels, drop-count) and the compiled fn
     returns ((loss, total_dropped), grads): the wavefront per-shard drop
     counters ride out of the shard_map and are summed so the caller can
-    enforce them (silently dropped rays bias the GRADIENT — VERDICT r4
-    weak #1); the other backends never drop and ship exact zeros."""
+    enforce them (silently dropped rays bias the GRADIENT); the jnp
+    backend never drops and ships exact zeros."""
 
     n = int(mesh.devices.size)
     stride = n if interleave and n > 1 else 1
-    if backend == "pallas":
-        from raytpu.kernels.trace_pallas import render_pixels_pallas_ad
-
-        per = cfg.num_pixels // n
-
-        def body(scene, gid):
-            pix = render_pixels_pallas_ad(scene, cfg, interpret,
-                                          gid[0], per, stride)
-            return pix, jnp.zeros((1,), jnp.int32)
-
-        # check_vma=False: pallas_call outputs carry no varying-axis
-        # metadata (same escape hatch as the sharded forward render).
-        render = jax.shard_map(body, mesh=mesh,
-                               in_specs=(P(), P(PIXEL_AXIS)),
-                               out_specs=(P(PIXEL_AXIS), P(PIXEL_AXIS)),
-                               check_vma=False)
-    elif backend == "wavefront":
+    if backend == "wavefront":
         from raytpu.kernels.wavefront import render_pixels_wavefront
 
         per = cfg.num_pixels // n
 
         def body(scene, gid):
             pix, info = render_pixels_wavefront(
-                scene, cfg, interpret=interpret, offset=gid[0], count=per,
-                ad=True, shard_stride=stride, return_info=True,
-                **dict(wf_opts))
+                scene, cfg, offset=gid[0], count=per, ad=True,
+                shard_stride=stride, return_info=True, **dict(wf_opts))
             return pix, info["dropped"].reshape(1)
 
         render = jax.shard_map(body, mesh=mesh,
@@ -299,8 +213,9 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     """Distributed loss + gradient; scene replicated, pixels sharded.
 
     The pixel count must divide by the mesh size (pad the target upstream
-    if needed).  backend="auto" picks the fused Pallas kernels on TPU when
-    the sphere count fits their unroll cap, the jnp autodiff path otherwise.
+    if needed).  `backend` resolves through render.resolve_backend with
+    train=True: "auto" takes the wavefront on the GPU and XLA autodiff of
+    the jnp tracer elsewhere.
     `interleave` gives each device the strided pixel set {shard + j*mesh}
     instead of a contiguous block (the same hot-strip load balancer as
     render_sharded; the loss permutes the target to match, so loss and
@@ -312,10 +227,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     loss_and_grad_wavefront).  With `return_info`, returns
     (loss, grads, {'dropped': int}).
     """
-    import jax as _jax
-
-    from raytpu.kernels.trace_pallas import BWD_MAX_SPHERES
-    from raytpu.render import _report_drops, _wf_wins
+    from raytpu.render import _report_drops, resolve_backend
 
     if mesh is None:
         mesh = make_mesh()
@@ -323,26 +235,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     p = cfg.num_pixels
     if p % n:
         raise ValueError(f"{p} pixels not divisible by mesh size {n}")
-    small = scene.spheres.pos.shape[0] <= BWD_MAX_SPHERES
-    if backend == "auto":
-        if _jax.default_backend() == "tpu":
-            # Same work-based crossover as the forward render (round-5
-            # training cells: tie at the boundary, wavefront 2.7x at
-            # N=256 d4 — and the dense one-shot reverse sweep crashes
-            # the worker at 1080p d6, so large-work scenes must not
-            # fall into it even under BWD_MAX_SPHERES).
-            backend = ("wavefront"
-                       if (not small
-                           or _wf_wins(scene.spheres.pos.shape[0],
-                                       cfg.max_depth))
-                       else "pallas")
-        else:
-            backend = "jnp"
-    if backend == "pallas" and not small:
-        raise ValueError("pallas backend needs a sphere count within "
-                         "BWD_MAX_SPHERES; use backend='wavefront'")
-    interpret = (backend in ("pallas", "wavefront")
-                 and _jax.default_backend() != "tpu")
+    backend = resolve_backend(backend, scene, cfg, train=True)
     if interleave and n > 1:
         per = p // n
         i = jnp.arange(p, dtype=jnp.int32)
@@ -350,7 +243,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     else:
         gid = jnp.arange(p, dtype=jnp.int32)
     (loss, dropped), grads = _sharded_grad_fn(
-        cfg, mesh, backend, interpret, interleave,
+        cfg, mesh, backend, interleave,
         tuple(sorted((wf_opts or {}).items())))(scene, gid, target_flat)
     nd = _report_drops(dropped, on_drop)
     if return_info:
@@ -369,13 +262,11 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     `trainable`: optional pytree with the Scene structure and a bool per
     leaf; gradients of False leaves are zeroed (fit only what you perturb —
     letting adam wander opacity/IOR freely destabilises the render).
-    `backend`: "auto" uses the fused Pallas forward+backward kernels on TPU
-    (sphere count within the kernels' unroll cap; the differentiable
-    wavefront tracer beyond it) — with or without a mesh; the jnp autodiff
-    path otherwise.  "wavefront" forces the wavefront training path (large
-    scenes / deep trees).  With a mesh, the chosen kernels run inside the
-    shard_map body and the scene cotangents are psum'd; `interleave`
-    balances hot-strip load across the mesh (see loss_and_grad_sharded).
+    `backend` resolves through render.resolve_backend with train=True:
+    "auto" takes the differentiable wavefront on the GPU and XLA autodiff
+    of the jnp tracer elsewhere; "jnp" and "wavefront" force a path.  With a mesh, the chosen tracer runs inside the shard_map body
+    and the scene cotangents are psum'd; `interleave` balances hot-strip
+    load across the mesh (see loss_and_grad_sharded).
 
     Wavefront drop handling: a capacity overflow during a fit BIASES the
     gradient (the zero-drop frontier moves as the geometry updates), so
@@ -388,44 +279,16 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     default — a crashed step beats a biased gradient)."""
     import optax
 
-    from raytpu.kernels.trace_pallas import BWD_MAX_SPHERES
-    from raytpu.render import _warn_escalate, _wf_auto_trials
+    from raytpu.render import (_report_drops, _warn_escalate,
+                               _wf_auto_trials, resolve_backend)
 
-    from raytpu.render import _wf_wins
-
-    small = scene.spheres.pos.shape[0] <= BWD_MAX_SPHERES
-    # Same work-based crossover as loss_and_grad_sharded's auto (see its
-    # comment — incl. keeping large-work scenes off the dense reverse
-    # sweep that crashes at 1080p d6).
-    wf_auto = (not small
-               or _wf_wins(scene.spheres.pos.shape[0], cfg.max_depth))
-    use_pallas = (mesh is None
-                  and backend in ("auto", "pallas")
-                  and jax.default_backend() == "tpu"
-                  and small
-                  and not (backend == "auto" and wf_auto))
-    use_wavefront = (mesh is None
-                     and (backend == "wavefront"
-                          or (backend == "auto" and wf_auto
-                              and jax.default_backend() == "tpu")))
-    if backend == "pallas" and mesh is None and not use_pallas:
-        raise ValueError("pallas fitting needs a TPU (or a mesh, where "
-                         "interpret mode is allowed) and a sphere count "
-                         "within BWD_MAX_SPHERES; use backend='wavefront' "
-                         "for larger scenes")
-
+    backend = resolve_backend(backend, scene, cfg, train=True)
     opt = optimizer if optimizer is not None else optax.adam(learning_rate)
     opt_state = opt.init(scene)
-    if use_pallas:
-        # Pack the (constant) target into the kernel's native tiled layout
-        # once; every step then runs transpose-free.
-        target_packed = pack_target(cfg, target_flat)
     # The auto-capacity ladder applies wherever a wavefront body might
-    # run (single-device wavefront or any mesh path — only wavefront
-    # shards ever report drops, so escalation on the other mesh backends
-    # simply never triggers).  train=True: the AD path's frontier
-    # (global compaction, 128K chunks).
-    trials = _wf_auto_trials(wf_opts, train=True)
+    # run (only wavefront bodies ever report drops, so escalation on the
+    # jnp backend simply never triggers).
+    trials = _wf_auto_trials(wf_opts)
     cap_i = 0
     losses = []
     for step in range(steps):
@@ -436,11 +299,7 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
                     scene, cfg, target_flat, mesh, backend=backend,
                     interleave=interleave, wf_opts=cur,
                     on_drop="ignore", return_info=True)
-            elif use_pallas:
-                loss, grads = loss_and_grad_pallas_packed(scene, cfg,
-                                                          target_packed)
-                info = dict(dropped=0)
-            elif use_wavefront:
+            elif backend == "wavefront":
                 loss, grads, info = loss_and_grad_wavefront(
                     scene, cfg, target_flat, on_drop="ignore",
                     return_info=True, **cur)
@@ -451,7 +310,6 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
                 break
             if cap_i + 1 == len(trials):
                 # Top of the ladder (or explicit capacity): enforce.
-                from raytpu.render import _report_drops
                 _report_drops(info["dropped"], on_drop)
                 break
             _warn_escalate(info["dropped"], cur, trials[cap_i + 1])

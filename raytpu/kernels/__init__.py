@@ -1,4 +1,4 @@
-"""Pallas TPU kernels for the hot path."""
+"""Accelerated paths: the fused GPU forward kernel and the wavefront tracer."""
 
 from raytpu.kernels.trace_pallas import render_image_pallas, render_pixels_pallas
 from raytpu.kernels.wavefront import (

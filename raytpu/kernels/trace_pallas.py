@@ -1,29 +1,32 @@
-"""Fused Pallas TPU forward kernel: camera -> bounce tree -> pixel tile.
+"""Fused dense forward kernel (Pallas, Triton route): camera -> bounce tree
+-> pixel, one ray per lane.
 
 This is the whole per-pixel OpenCL kernel (raytrace_kernel.cl:870-973) plus
-the tracer it calls, fused into one Pallas kernel:
+the tracer it calls, fused into one GPU kernel:
 
-  * The pixel grid is tiled (TILE_ROWS x 128 pixels per grid step); rays live
-    on the VPU lanes axis, so every elementwise op below is an (R, 128)
-    vector op with zero padding waste.
-  * The scene is staged once into on-chip memory for the whole tile — the
-    TPU version of the kernel's cooperative __local copy + barrier
-    (raytrace_kernel.cl:890-907): sphere/light fields sit in SMEM and are
-    broadcast as scalars inside a fori_loop over spheres, which is exactly
-    the reference's per-sphere loop (raytracer.h:161-190) vectorized over
-    rays instead of serialised per ray.
-  * The recursion is the same breadth-first bounce tree as raytpu.trace:
-    each level doubles the sublane dimension (refraction children stacked
-    on reflection children), emissions fold back onto the pixel tile by a
-    row-block reduction.
-  * Supersampling: the forward kernel runs all alias^2 samples in an
-    in-kernel fori_loop within one grid step (grid=(tiles,)); the backward
-    kernel keeps samples as a second grid dimension, accumulating scene
-    cotangents across sequential grid steps (TPU grids are sequential, so
-    read-modify-write accumulation is safe).
+  * Each program owns a 1-D block of BLOCK pixels; every elementwise op
+    below is a (BLOCK,) vector op, one lane per ray.
+  * The scene lives in one flat float32 table in global memory (12 x N
+    sphere rows, 6 x L light rows, 5 background values); the per-sphere
+    loops read it as block-uniform scalars, which stay in L1 — the GPU
+    form of the kernel's cooperative __local copy (raytrace_kernel.cl:
+    890-907) — and vectorize the reference's per-sphere loop
+    (raytracer.h:161-190) over rays.
+  * The fixed-depth bounce tree is walked DEPTH-FIRST, the reference GPU
+    kernel's own order (an explicit per-ray stack, raytraceStack.h): the
+    refracted child is followed at once and the reflected child is pushed
+    onto a register stack of `depth` slots.  Live state is therefore
+    depth x 14 floats per ray instead of a breadth-first level's 2^depth
+    rays, and a subtree whose root is dead on every lane of the block is
+    never entered (exact: dead rays carry exactly-zero intensity, so they
+    emit and spawn exact zeros).
+  * Supersampling: all alias^2 samples run in an in-kernel loop, summed
+    into the pixel in registers.
 
-Numerics match raytpu.trace's clean mode bit-for-bit-ish (same f32 op
-order); tests/test_pallas.py pins kernel-vs-jnp agreement.
+The arithmetic mirrors raytpu.trace's clean semantics with one-ray-per-lane
+scalar loops over spheres and lights; tests/test_pallas.py pins
+kernel-vs-jnp agreement (allclose with few outliers — the programs are
+compiled separately, so near-tangent lanes may flip branches).
 """
 
 from __future__ import annotations
@@ -34,21 +37,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from raytpu.config import RenderConfig
 
-LANES = 128
-TILE_ROWS = 8
-TILE_PIXELS = TILE_ROWS * LANES
-# Scene SMEM row layout: [pos_x, pos_y, pos_z, radius, matte_rgb x3,
+# Rays per program (a power of two, as Triton requires) and warps per
+# program: one ray per thread keeps the depth-first stack in registers.
+BLOCK = 128
+NUM_WARPS = 4
+
+# Scene table row layout: [pos_x, pos_y, pos_z, radius, matte_rgb x3,
 # gloss_rgb x3, opacity, ior]
 _S_PX, _S_PY, _S_PZ, _S_RAD = 0, 1, 2, 3
 _S_MR, _S_MG, _S_MB = 4, 5, 6
 _S_GR, _S_GG, _S_GB = 7, 8, 9
 _S_OP, _S_IOR = 10, 11
 SCENE_ROWS = 12
-# Light SMEM rows: [pos_x, pos_y, pos_z, col_r, col_g, col_b]
+# Light rows: [pos_x, pos_y, pos_z, col_r, col_g, col_b]
 LIGHT_ROWS = 6
 
 _EPS_RAY = np.float32(1e-5)
@@ -62,74 +67,16 @@ _TOL = np.float32(1e-3)
 
 f32 = jnp.float32
 
-# Scoped-VMEM ceiling for both kernels (~physical on v5e; Mosaic's 16M
-# default is conservative for deep bounce trees).
-VMEM_LIMIT_BYTES = 127 * 1024 * 1024
-
-
-# --- Select forms -----------------------------------------------------------
-# _BLEND_SELECTS rewrites every select in the DIFFERENTIABLE path (wheres,
-# min/max/clip on values that carry gradients) as exact arithmetic blending
-#     a*m + b*(1-m),  m = mask.astype(f32)
-# which is bitwise equal to jnp.where for finite operands (a*1 = a, b*0 = 0,
-# a+0 = a) but leaves only f32 residuals for autodiff: the transpose of a
-# blend needs m (f32), while the transpose of a select needs the i1 mask —
-# and a differentiated lax.cond whose residual set contains vector-i1 masks
-# kills the Mosaic remote compile ("failed to legalize operation 'scf.if'",
-# round 3; reduced repro tools/probe_cond_f32_residuals.py, where the
-# blend-form cond PASSES with exact gradients).  This is what lets the
-# full-tree backward keep the liveness early-exit conds (RAYTPU_BWD_FULLTREE
-# =ee, _bwd_tile_grads_fulltree).  The flag is flipped only while TRACING
-# that backward; every forward/per-level path keeps plain selects.
-# Masks and comparisons themselves stay i1 — only select OUTPUTS that carry
-# gradients are blended (i1 intermediates are fine as long as the backward
-# never references them).
-_BLEND_SELECTS = False
-
-
-def _selw(mask, a, b):
-    """jnp.where(mask, a, b) for float operands — blend form under
-    _BLEND_SELECTS.  Operands MUST be finite (NaN/Inf * 0 = NaN breaks the
-    blend); every call site below guards its non-finite branches first,
-    exactly as the double-where guards always did."""
-    if _BLEND_SELECTS:
-        m = mask.astype(f32)
-        return a * m + b * (f32(1.0) - m)
-    return jnp.where(mask, a, b)
-
-
-def _minf(a, b):
-    """jnp.minimum for finite operands (ties resolve identically: a < b
-    picks b on ties, matching minimum's left-operand... both equal)."""
-    if _BLEND_SELECTS:
-        return _selw(a < b, a, b)
-    return jnp.minimum(a, b)
+# Sphere loops unroll statically up to this count (straight-line code for
+# the small scenes the dense kernel serves) and become scf.for loops above
+# it, which bounds the kernel's code size at large N.
+UNROLL_SPHERES = 4
 
 
 def _sqrt_pos(x):
-    """sqrt(x) clamped at 0, with the double-where so the backward kernel's
-    jax.vjp sees a finite derivative on clamped lanes (sqrt'(0) is inf)."""
+    """sqrt(x) clamped at 0."""
     pos = x > 0
-    return _selw(pos, jnp.sqrt(_selw(pos, x, f32(1.0))), f32(0.0))
-
-
-# Mosaic's scf.for lowering rejects boolean vector carries, so the sphere
-# loops below carry f32 0/1 masks instead of bools, and small sphere counts
-# unroll statically (which also lets the compiler fold the SMEM broadcasts).
-UNROLL_SPHERES = 16
-
-
-class _ScalarTable:
-    """SMEM-ref-like [row, i] indexing over a tuple-of-tuples of traced
-    scalars — the backward kernel reads the (small) light table into values
-    once so jax.vjp can differentiate the statically-unrolled light loop."""
-
-    def __init__(self, vals):
-        self.vals = vals
-
-    def __getitem__(self, key):
-        row, i = key
-        return self.vals[row][i]
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, f32(1.0))), f32(0.0))
 
 
 def _sphere_loop(n, body, init):
@@ -146,7 +93,7 @@ def _inv2a(a):
     divide is per-RAY, not per-sphere, so callers hoist it out of their
     sphere loops and _ray_sphere_t multiplies (1-ulp different from the /
     form; all kernel-vs-jnp contracts are tolerance-based)."""
-    return f32(1.0) / _selw(a == 0, f32(1.0), f32(2.0) * a)
+    return f32(1.0) / jnp.where(a == 0, f32(1.0), f32(2.0) * a)
 
 
 def _ray_sphere_t(ox, oy, oz, dx, dy, dz, a, inv2a, cx, cy, cz, rad):
@@ -161,31 +108,14 @@ def _ray_sphere_t(ox, oy, oz, dx, dy, dz, a, inv2a, cx, cy, cz, rad):
     root = _sqrt_pos(radicand)
     u0 = (-b + root) * inv2a
     u1 = (-b - root) * inv2a
-    t0 = _selw(has_real & (u0 > _EPS_RAY), u0, _BIG_T)
-    t1 = _selw(has_real & (u1 > _EPS_RAY), u1, _BIG_T)
-    t = _minf(t0, t1)
+    t0 = jnp.where(has_real & (u0 > _EPS_RAY), u0, _BIG_T)
+    t1 = jnp.where(has_real & (u1 > _EPS_RAY), u1, _BIG_T)
+    t = jnp.minimum(t0, t1)
     return t, t < _BIG_T
 
 
-def _hit_dict(found, min_t, ox, oy, oz, dx, dy, dz, cx, cy, cz,
-              mr, mg, mb, gr, gg, gb, op, ior):
-    """Shared hit assembly (point, normalized normal, field dict) — one
-    copy so the three closest-hit providers (_closest_hit, _SmemScene's
-    gather form, _VjpScene) stay structurally bit-identical, which the
-    fwd/bwd primal-equivalence contract depends on."""
-    hx = ox + min_t * dx
-    hy = oy + min_t * dy
-    hz = oz + min_t * dz
-    nx, ny, nz = hx - cx, hy - cy, hz - cz
-    n2 = nx * nx + ny * ny + nz * nz
-    inv = jax.lax.rsqrt(_selw(n2 == 0, f32(1.0), n2))
-    return dict(t=min_t, found=found, hx=hx, hy=hy, hz=hz,
-                nx=nx * inv, ny=ny * inv, nz=nz * inv,
-                mr=mr, mg=mg, mb=mb, gr=gr, gg=gg, gb=gb, op=op, ior=ior)
-
-
 def _closest_hit(scene, n_spheres, ox, oy, oz, dx, dy, dz):
-    """calcIntersection (raytracer.h:145-194): fori over spheres carrying the
+    """calcIntersection (raytracer.h:145-194): loop over spheres carrying the
     running minimum plus the winning sphere's fields (strict '<' keeps the
     lowest index on ties, matching the C loop order)."""
     a = dx * dx + dy * dy + dz * dz
@@ -213,9 +143,15 @@ def _closest_hit(scene, n_spheres, ox, oy, oz, dx, dy, dz):
             zero, zero, zero, zero, zero, zero, zero, zero)
     (min_t, found_m, cx, cy, cz, mr, mg, mb, gr, gg, gb, op, ior) = \
         _sphere_loop(n_spheres, body, init)
-    found = found_m > 0
-    return _hit_dict(found, min_t, ox, oy, oz, dx, dy, dz, cx, cy, cz,
-                     mr, mg, mb, gr, gg, gb, op, ior)
+    hx = ox + min_t * dx
+    hy = oy + min_t * dy
+    hz = oz + min_t * dz
+    nx, ny, nz = hx - cx, hy - cy, hz - cz
+    n2 = nx * nx + ny * ny + nz * nz
+    inv = jax.lax.rsqrt(jnp.where(n2 == 0, f32(1.0), n2))
+    return dict(t=min_t, found=found_m > 0, hx=hx, hy=hy, hz=hz,
+                nx=nx * inv, ny=ny * inv, nz=nz * inv,
+                mr=mr, mg=mg, mb=mb, gr=gr, gg=gg, gb=gb, op=op, ior=ior)
 
 
 def _shadow_blocked(scene, n_spheres, px, py, pz, lx, ly, lz, gap):
@@ -262,7 +198,7 @@ def _shadow_blocked(scene, n_spheres, px, py, pz, lx, ly, lz, gap):
     return mask > 0
 
 
-def _matte_sum(scn, lights, n_lights, hx, hy, hz, nx, ny, nz):
+def _matte_sum(scene, n_spheres, lights, n_lights, hx, hy, hz, nx, ny, nz):
     """calculateMatte (raytracer.h:313-367): static unroll over lights."""
     sr = jnp.zeros(hx.shape, f32)
     sg = jnp.zeros(hx.shape, f32)
@@ -271,15 +207,13 @@ def _matte_sum(scn, lights, n_lights, hx, hy, hz, nx, ny, nz):
         lx, ly, lz = lights[0, l], lights[1, l], lights[2, l]
         ex, ey, ez = lx - hx, ly - hy, lz - hz
         gap = ex * ex + ey * ey + ez * ez
-        inv = jax.lax.rsqrt(_selw(gap == 0, f32(1.0), gap))
+        inv = jax.lax.rsqrt(jnp.where(gap == 0, f32(1.0), gap))
         incidence = nx * ex * inv + ny * ey * inv + nz * ez * inv
-        blocked = scn.shadow_blocked(hx, hy, hz, lx, ly, lz, gap)
-        # Double-where on the divide: at gap == 0 the primal is already
-        # masked (incidence is 0 there), but the unguarded division's vjp
-        # would emit 0 * (0/0) = NaN into the scene cotangents.
-        w = _selw(~blocked & (incidence > 0),
-                  incidence / _selw(gap == 0, f32(1.0), gap),
-                  f32(0.0))
+        blocked = _shadow_blocked(scene, n_spheres, hx, hy, hz, lx, ly, lz,
+                                  gap)
+        w = jnp.where(~blocked & (incidence > 0),
+                      incidence / jnp.where(gap == 0, f32(1.0), gap),
+                      f32(0.0))
         sr = sr + w * lights[3, l]
         sg = sg + w * lights[4, l]
         sb = sb + w * lights[5, l]
@@ -288,12 +222,10 @@ def _matte_sum(scn, lights, n_lights, hx, hy, hz, nx, ny, nz):
 
 def _primary_container(scene, n_spheres, px, py, pz):
     """primaryContainer (raytracer.h:245-270): first containing sphere's
-    medium fields (matte rgb, ior, opacity) or the background's, plus the
-    winning sphere index (-1 = none; the wavefront carries it as the
-    child's compressed medium state)."""
+    medium fields (matte rgb, ior, opacity) or the background's."""
 
     def body(i, carry):
-        got, mr, mg, mb, ior, op, idx = carry
+        got, mr, mg, mb, ior, op = carry
         ex = px - scene[_S_PX, i]
         ey = py - scene[_S_PY, i]
         ez = pz - scene[_S_PZ, i]
@@ -303,222 +235,13 @@ def _primary_container(scene, n_spheres, px, py, pz):
         return (sel(f32(1.0), got),
                 sel(scene[_S_MR, i], mr), sel(scene[_S_MG, i], mg),
                 sel(scene[_S_MB, i], mb), sel(scene[_S_IOR, i], ior),
-                sel(scene[_S_OP, i], op), sel(i, idx))
+                sel(scene[_S_OP, i], op))
 
     shape = px.shape
-    init = (jnp.zeros(shape, f32), jnp.zeros(shape, f32),
-            jnp.zeros(shape, f32), jnp.zeros(shape, f32),
-            jnp.ones(shape, f32), jnp.zeros(shape, f32),
-            jnp.full(shape, -1, jnp.int32))
-    got, mr, mg, mb, ior, op, idx = _sphere_loop(n_spheres, body, init)
-    return got > 0, mr, mg, mb, ior, op, idx
-
-
-def _closest_hit_idx(scene, n_spheres, ox, oy, oz, dx, dy, dz):
-    """calcIntersection's argmin only: fori over spheres carrying the running
-    (min_t, winner index) — 2 carries instead of 13, the cheap form for
-    large sphere counts (the winner's fields are gathered afterwards)."""
-    a = dx * dx + dy * dy + dz * dz
-    inv2a = _inv2a(a)
-
-    def body(i, carry):
-        min_t, idx = carry
-        t, ok = _ray_sphere_t(ox, oy, oz, dx, dy, dz, a, inv2a,
-                              scene[_S_PX, i], scene[_S_PY, i],
-                              scene[_S_PZ, i], scene[_S_RAD, i])
-        better = ok & (t < min_t)
-        return (jnp.where(better, t, min_t),
-                jnp.where(better, i, idx))
-
-    big = jnp.full(ox.shape, _MAX_DIST)
-    neg = jnp.full(ox.shape, -1, jnp.int32)
-    return _sphere_loop(n_spheres, body, (big, neg))
-
-
-def _container_idx(scene, n_spheres, px, py, pz):
-    """primaryContainer's first-match index (or -1), index-only form."""
-
-    def body(i, idx):
-        ex = px - scene[_S_PX, i]
-        ey = py - scene[_S_PY, i]
-        ez = pz - scene[_S_PZ, i]
-        r = scene[_S_RAD, i] + _EPS_CONTAIN
-        inside = (ex * ex + ey * ey + ez * ez <= r * r) & (idx < 0)
-        return jnp.where(inside, i, idx)
-
-    neg = jnp.full(px.shape, -1, jnp.int32)
-    return _sphere_loop(n_spheres, body, neg)
-
-
-class _SmemScene:
-    """Scene access for the forward kernel: per-sphere selection loops run
-    over the packed SMEM table via scalar broadcasts (the TPU version of the
-    reference's __local staging, raytrace_kernel.cl:890-907).
-
-    For small sphere counts the loops carry the winner's fields directly
-    (13-carry running select).  When a VMEM value table is provided and the
-    count exceeds the unroll threshold, the loops carry only (min_t, index)
-    and the winner's fields are gathered afterwards with a one-hot matmul —
-    ~2.5x less VPU work per sphere iteration, with the gather on the MXU.
-    Both forms produce identical values (same running-min, same fields)."""
-
-    def __init__(self, scene, n_spheres, vals=None):
-        self.scene = scene
-        self.n = n_spheres
-        self.vals = vals
-
-    def _use_gather(self):
-        return self.vals is not None and self.n > UNROLL_SPHERES
-
-    def closest_hit(self, ox, oy, oz, dx, dy, dz):
-        if not self._use_gather():
-            return _closest_hit(self.scene, self.n, ox, oy, oz, dx, dy, dz)
-        min_t, idx = _closest_hit_idx(self.scene, self.n,
-                                      ox, oy, oz, dx, dy, dz)
-        found = idx >= 0
-        fields = _gather_cols(self.vals, idx)
-        return _hit_dict(found, min_t, ox, oy, oz, dx, dy, dz,
-                         fields[_S_PX], fields[_S_PY], fields[_S_PZ],
-                         fields[_S_MR], fields[_S_MG], fields[_S_MB],
-                         fields[_S_GR], fields[_S_GG], fields[_S_GB],
-                         fields[_S_OP], fields[_S_IOR])
-
-    def shadow_blocked(self, px, py, pz, lx, ly, lz, gap):
-        return _shadow_blocked(self.scene, self.n, px, py, pz, lx, ly, lz,
-                               gap)
-
-    def primary_container(self, px, py, pz):
-        if not self._use_gather():
-            return _primary_container(self.scene, self.n, px, py, pz)
-        idx = _container_idx(self.scene, self.n, px, py, pz)
-        fields = _gather_cols(self.vals, idx)
-        got = idx >= 0
-        ior = jnp.where(got, fields[_S_IOR], f32(1.0))
-        return (got, fields[_S_MR], fields[_S_MG], fields[_S_MB], ior,
-                fields[_S_OP], idx)
-
-
-# Ray-chunk bound for one gather's one-hot table: (N, 4096) f32 at N=256 is
-# 4 MB — wide bounce levels (512 rows at depth 6) would otherwise build
-# 32 MB one-hots, which blow scoped VMEM and stall the Mosaic compiler.
-# The bound scales down with the sphere count so the one-hot (plus its
-# iota twin) stays ~<= 8 MB all the way to BWD_MAX_SPHERES=4096 — a fixed
-# 32 rows would mean a 64 MB one-hot there.  N <= 512 keeps the measured
-# 32-row behaviour unchanged.
-_GATHER_MAX_ROWS = 32
-
-
-def _gather_chunk_rows(n: int) -> int:
-    rows = _GATHER_MAX_ROWS
-    # Floor at 1 row, not 4: the uncapped wavefront forward path has no
-    # sphere-count ceiling, and a 4-row floor would silently rebuild the
-    # >8 MB one-hots (N=32768 -> 64 MB) this bound exists to prevent.
-    while rows > 1 and n * rows * LANES * 4 > (8 << 20):
-        rows //= 2
-    return rows
-
-
-def _gather_cols(table_vals, idx):
-    """Differentiable per-ray gather of columns from a (rows, N) value
-    table via a one-hot matmul — the TPU-idiomatic gather (MXU does the
-    work, and its transpose is just the mirrored matmul, so jax.vjp needs
-    no scatter or loop rules).  idx == -1 gathers exact zeros.  Wide ray
-    blocks are gathered in row chunks to bound the one-hot table.
-
-    idx: (R, L) int32 -> returns (rows, R, L) float32.
-    """
-    r = idx.shape[0]
-    ch = _gather_chunk_rows(table_vals.shape[1])
-    if r <= ch:
-        return _gather_cols_chunk(table_vals, idx)
-    parts = [_gather_cols_chunk(table_vals, idx[c0:c0 + ch])
-             for c0 in range(0, r, ch)]
-    return jnp.concatenate(parts, axis=1)
-
-
-def _gather_cols_chunk(table_vals, idx):
-    rows, n = table_vals.shape
-    r, lanes = idx.shape
-    flat = idx.reshape(1, r * lanes)
-    iota = jax.lax.broadcasted_iota(jnp.int32, (n, r * lanes), 0)
-    onehot = (iota == flat).astype(f32)            # int compare: no tangent
-    out = jnp.dot(table_vals, onehot, preferred_element_type=jnp.float32)
-    return out.reshape(rows, r, lanes)
-
-
-class _VjpScene:
-    """Scene access for the backward kernel: selection indices (closest-hit
-    argmin, container first-match, shadow masks) come from NON-differentiable
-    fori_loops over the SMEM scene table (stop-gradient ray inputs), and the
-    selected sphere's fields are gathered from a traced (SCENE_ROWS, N) value
-    table with one-hot matmuls, then the reference formulas are recomputed
-    differentiably from the gathered values.  jax.vjp through a bounce level
-    therefore sees only matmuls + elementwise ops — no sphere-indexed control
-    flow to transpose and no static unrolling, so compile time and the
-    supported sphere count no longer scale with the unroll.
-
-    Primal values are bit-identical to _SmemScene's: the winning sphere's t
-    is recomputed with the same _ray_sphere_t op order, and non-found lanes
-    keep the same kMaxRenderDist=1000 init (raytracer.h:156).
-
-    Residual forwarding (`sel`): the selection loops are deterministic
-    functions of (scene, state), so a caller that already ran them — the
-    backward sweep's states build runs every level's loops to produce the
-    children — can pass the winning indices in as `sel=(hit_idx, cont_idx)`
-    and this provider skips the fori loops entirely, keeping only the
-    differentiable gather + recompute.  Values are bit-identical (same
-    indices, same gather, same recompute); the indices recorded on
-    `self.sel_rec` after a level are what a build should forward."""
-
-    def __init__(self, scene_smem, vals, n_spheres, sel=None):
-        self.scene = scene_smem    # SMEM ref (or any [row, i]-indexable)
-        self.vals = vals           # (SCENE_ROWS, N) traced float32
-        self.n = n_spheres
-        self.sel = sel             # optional (hit_idx, cont_idx) override
-        self.sel_rec = [None, None]  # indices this level actually used
-
-    def closest_hit(self, ox, oy, oz, dx, dy, dz):
-        if self.sel is not None:
-            idx = self.sel[0]
-        else:
-            sg = jax.lax.stop_gradient
-            _, idx = _closest_hit_idx(self.scene, self.n, sg(ox), sg(oy),
-                                      sg(oz), sg(dx), sg(dy), sg(dz))
-        self.sel_rec[0] = idx
-        found = idx >= 0
-
-        fields = _gather_cols(self.vals, idx)
-        cx, cy, cz, rad = fields[_S_PX], fields[_S_PY], fields[_S_PZ], \
-            fields[_S_RAD]
-        a = dx * dx + dy * dy + dz * dz
-        t_w, _ = _ray_sphere_t(ox, oy, oz, dx, dy, dz, a, _inv2a(a),
-                               cx, cy, cz, rad)
-        min_t = _selw(found, t_w, _MAX_DIST)
-        return _hit_dict(found, min_t, ox, oy, oz, dx, dy, dz, cx, cy, cz,
-                         fields[_S_MR], fields[_S_MG], fields[_S_MB],
-                         fields[_S_GR], fields[_S_GG], fields[_S_GB],
-                         fields[_S_OP], fields[_S_IOR])
-
-    def shadow_blocked(self, px, py, pz, lx, ly, lz, gap):
-        # Visibility is a step function: zero gradient almost everywhere, so
-        # the whole test runs on stop-gradient inputs against SMEM.
-        sg = jax.lax.stop_gradient
-        return _shadow_blocked(self.scene, self.n, sg(px), sg(py), sg(pz),
-                               sg(lx), sg(ly), sg(lz), sg(gap))
-
-    def primary_container(self, px, py, pz):
-        if self.sel is not None:
-            idx = self.sel[1]
-        else:
-            sg = jax.lax.stop_gradient
-            idx = _container_idx(self.scene, self.n, sg(px), sg(py), sg(pz))
-        self.sel_rec[1] = idx
-        fields = _gather_cols(self.vals, idx)
-        got = idx >= 0
-        # Non-contained lanes mirror _primary_container's init (ior=1).
-        ior = _selw(got, fields[_S_IOR], f32(1.0))
-        return (got, fields[_S_MR], fields[_S_MG], fields[_S_MB], ior,
-                fields[_S_OP], idx)
+    zero = jnp.zeros(shape, f32)
+    init = (zero, zero, zero, zero, jnp.ones(shape, f32), zero)
+    got, mr, mg, mb, ior, op = _sphere_loop(n_spheres, body, init)
+    return got > 0, mr, mg, mb, ior, op
 
 
 def _fresnel(n1, n2, c1, c2):
@@ -527,78 +250,37 @@ def _fresnel(n1, n2, c1, c2):
     right = n2 * c2
     num = left - right
     den2 = (left + right) * (left + right)
-    refl = _minf(num * num / _selw(den2 < _EPS_FRESNEL, f32(1.0), den2),
-                 f32(1.0))
-    return _selw(den2 < _EPS_FRESNEL, f32(1.0), refl)
+    refl = jnp.minimum(
+        num * num / jnp.where(den2 < _EPS_FRESNEL, f32(1.0), den2), f32(1.0))
+    return jnp.where(den2 < _EPS_FRESNEL, f32(1.0), refl)
 
 
-def _trace_level(scn, lights, n_lights, bg, state, spawn,
-                 skip_dead_shading=False, medium_idx=None, emit=True):
+def _trace_level(scene, n_spheres, lights, n_lights, bg, state, spawn):
     """One bounce level on SoA ray state; mirrors raytpu.trace._trace_level
-    (see its docstring for the reference-semantics map).  `bg` is a dict of
-    background-medium scalars (traced values read from SMEM).
-
-    skip_dead_shading guards the shadow-ray/matte block behind a whole-tile
-    liveness cond — background tiles (most of a typical frame) then skip the
-    lights x spheres shadow loops entirely; exact, because the block's
-    result is fully masked by `mgate` anyway.  The backward kernel leaves it
-    off to keep its per-level vjp straight-line.
-
-    medium_idx (wavefront state compression): the parent rays' medium as a
-    SPHERE INDEX vector (f32; -1 = background).  When given, the spawned
-    children carry [refraction-target index | parent index] as their 10th
-    field instead of the five medium value fields — exact, because the
-    values are a pure table lookup of the index (wavefront.py regathers
-    them at the next level).
-
-    emit=False skips the emission computation entirely (miss paint + the
-    lights x spheres shadow/matte block) and returns None emissions — for
-    callers that only need the children (the backward kernel's states
-    build; children depend on refraction/reflection, never on shading)."""
+    (see its docstring for the reference-semantics map).  `scene`/`lights`
+    are [row, i]-indexable tables, `bg` a dict of background-medium
+    scalars.  Returns ((er, eg, eb), (refraction_child, reflection_child))
+    — children None unless `spawn`."""
     (ox, oy, oz, dx, dy, dz, ir, ig, ib, mmr, mmg, mmb, mior, mop) = state
-    hit = scn.closest_hit(ox, oy, oz, dx, dy, dz)
+    hit = _closest_hit(scene, n_spheres, ox, oy, oz, dx, dy, dz)
     sig = (ir >= _MIN_SIG) | (ig >= _MIN_SIG) | (ib >= _MIN_SIG)
     live = hit["found"] & sig
 
     opacity = hit["op"]
     transparency = f32(1.0) - opacity
 
-    if emit:
-        miss = ~hit["found"]
-        er = _selw(miss, ir * mmr, f32(0.0))
-        eg = _selw(miss, ig * mmg, f32(0.0))
-        eb = _selw(miss, ib * mmb, f32(0.0))
-        mgate = live & (opacity > 0)
-
-        def shade(_):
-            return _matte_sum(scn, lights, n_lights,
-                              hit["hx"], hit["hy"], hit["hz"],
-                              hit["nx"], hit["ny"], hit["nz"])
-
-        if skip_dead_shading:
-            # Operand-derived dead outputs under blend mode: this cond is
-            # then DIFFERENTIATED (the per-level vjp's shading skip,
-            # RAYTPU_BWD_SKIP_SHADING) and a constant-in-one-branch cond
-            # output becomes the vector arith.select Mosaic cannot
-            # legalize; x*0 lowers as a plain scf.if either way.
-            if _BLEND_SELECTS:
-                sr, sg, sb = jax.lax.cond(
-                    jnp.any(mgate), shade,
-                    lambda i: (i * f32(0.0), i * f32(0.0), i * f32(0.0)),
-                    ir)
-            else:
-                zero = jnp.zeros_like(ir)
-                sr, sg, sb = jax.lax.cond(
-                    jnp.any(mgate), shade,
-                    lambda _: (zero, zero, zero), operand=None)
-        else:
-            sr, sg, sb = shade(None)
-        er = er + _selw(mgate, opacity * ir * hit["mr"] * sr, f32(0.0))
-        eg = eg + _selw(mgate, opacity * ig * hit["mg"] * sg, f32(0.0))
-        eb = eb + _selw(mgate, opacity * ib * hit["mb"] * sb, f32(0.0))
-        emissions = (er, eg, eb)
-    else:
-        emissions = None
+    miss = ~hit["found"]
+    er = jnp.where(miss, ir * mmr, f32(0.0))
+    eg = jnp.where(miss, ig * mmg, f32(0.0))
+    eb = jnp.where(miss, ib * mmb, f32(0.0))
+    mgate = live & (opacity > 0)
+    sr, sg, sb = _matte_sum(scene, n_spheres, lights, n_lights,
+                            hit["hx"], hit["hy"], hit["hz"],
+                            hit["nx"], hit["ny"], hit["nz"])
+    er = er + jnp.where(mgate, opacity * ir * hit["mr"] * sr, f32(0.0))
+    eg = eg + jnp.where(mgate, opacity * ig * hit["mg"] * sg, f32(0.0))
+    eb = eb + jnp.where(mgate, opacity * ib * hit["mb"] * sb, f32(0.0))
+    emissions = (er, eg, eb)
 
     if not spawn:
         return emissions, None
@@ -608,21 +290,21 @@ def _trace_level(scn, lights, n_lights, bg, state, spawn,
 
     # --- Refraction (calculateRefraction, raytracer.h:642-815) ---
     dot_dn = dx * nx + dy * ny + dz * nz
-    cos1 = _selw(dot_dn < f32(-1.0), f32(-1.0),
-                 _selw(dot_dn > f32(1.0), f32(1.0), dot_dn))
+    cos1 = jnp.where(dot_dn < f32(-1.0), f32(-1.0),
+                     jnp.where(dot_dn > f32(1.0), f32(1.0), dot_dn))
     sin1 = _sqrt_pos(f32(1.0) - cos1 * cos1)
     probe_x = hx + _SHIFT * dx
     probe_y = hy + _SHIFT * dy
     probe_z = hz + _SHIFT * dz
-    t_in, tmr, tmg, tmb, tior, top, t_idx = scn.primary_container(
-        probe_x, probe_y, probe_z)
-    tior_bg = _selw(t_in, tior, bg["ior"])
-    tmop = _selw(t_in, top, bg["opacity"])
-    tmmr = _selw(t_in, tmr, bg["matte_r"])
-    tmmg = _selw(t_in, tmg, bg["matte_g"])
-    tmmb = _selw(t_in, tmb, bg["matte_b"])
+    t_in, tmr, tmg, tmb, tior, top = _primary_container(
+        scene, n_spheres, probe_x, probe_y, probe_z)
+    tior_bg = jnp.where(t_in, tior, bg["ior"])
+    tmop = jnp.where(t_in, top, bg["opacity"])
+    tmmr = jnp.where(t_in, tmr, bg["matte_r"])
+    tmmg = jnp.where(t_in, tmg, bg["matte_g"])
+    tmmb = jnp.where(t_in, tmb, bg["matte_b"])
 
-    ratio = mior / _selw(tior_bg == 0, f32(1.0), tior_bg)
+    ratio = mior / jnp.where(tior_bg == 0, f32(1.0), tior_bg)
     sin2 = ratio * sin1
     tir = (sin2 <= f32(-1.0)) | (sin2 >= f32(1.0))
 
@@ -630,37 +312,34 @@ def _trace_level(scn, lights, n_lights, bg, state, spawn,
     # (algebra.h:22-65); a == 1 so only the radicand branch matters.
     qb = f32(2.0) * cos1
     ratio2 = ratio * ratio
-    qc = f32(1.0) - f32(1.0) / _selw(ratio2 == 0, f32(1.0), ratio2)
+    qc = f32(1.0) - f32(1.0) / jnp.where(ratio2 == 0, f32(1.0), ratio2)
     radicand = qb * qb - f32(4.0) * qc
     rad_zero = jnp.abs(radicand) < _TOL
     root = _sqrt_pos(radicand)
     dbl = -qb * f32(0.5)
-    r0 = _selw(rad_zero, dbl, (-qb + root) * f32(0.5))
-    r1 = _selw(rad_zero, dbl, (-qb - root) * f32(0.5))
-    nroots = jnp.where(rad_zero, 1, 2)
+    r0 = jnp.where(rad_zero, dbl, (-qb + root) * f32(0.5))
+    r1 = jnp.where(rad_zero, dbl, (-qb - root) * f32(0.5))
 
     c0x, c0y, c0z = dx + r0 * nx, dy + r0 * ny, dz + r0 * nz
     c1x, c1y, c1z = dx + r1 * nx, dy + r1 * ny, dz + r1 * nz
     a0 = dx * c0x + dy * c0y + dz * c0z
-    # a1/nroots feed only comparisons (no gradient flows through them), so
-    # they keep plain selects even in blend mode — a primal-only select
-    # leaves no residual, and blending a1 would need a finite -inf stand-in.
-    a1 = jnp.where(nroots >= 2, dx * c1x + dy * c1y + dz * c1z, -jnp.inf)
+    # With a single (collapsed) root, root 1 never competes.
+    a1 = jnp.where(rad_zero, -jnp.inf, dx * c1x + dy * c1y + dz * c1z)
     floor = f32(-0.1)
     take0 = a0 > floor
     take1 = a1 > jnp.maximum(a0, floor)
-    rdx = _selw(take1, c1x, _selw(take0, c0x, f32(0.0)))
-    rdy = _selw(take1, c1y, _selw(take0, c0y, f32(0.0)))
-    rdz = _selw(take1, c1z, _selw(take0, c0z, f32(0.0)))
+    rdx = jnp.where(take1, c1x, jnp.where(take0, c0x, f32(0.0)))
+    rdy = jnp.where(take1, c1y, jnp.where(take0, c0y, f32(0.0)))
+    rdz = jnp.where(take1, c1z, jnp.where(take0, c0z, f32(0.0)))
 
     cos2 = _sqrt_pos(f32(1.0) - sin2 * sin2)
-    cos2 = _selw(cos1 < 0, -cos2, cos2)
+    cos2 = jnp.where(cos1 < 0, -cos2, cos2)
     rs = _fresnel(mior, tior_bg, cos1, cos2)
     rp = _fresnel(mior, tior_bg, cos2, cos1)
-    factor = _selw(tir, f32(1.0), f32(0.5) * (rs + rp))
+    factor = jnp.where(tir, f32(1.0), f32(0.5) * (rs + rp))
 
     spawn_m = live & (transparency > 0)
-    rscale = _selw(spawn_m, transparency * (f32(1.0) - factor), f32(0.0))
+    rscale = jnp.where(spawn_m, transparency * (f32(1.0) - factor), f32(0.0))
     r_ir, r_ig, r_ib = rscale * ir, rscale * ig, rscale * ib
 
     # --- Reflection (stage 1, raytracer.h:552-615) ---
@@ -670,118 +349,107 @@ def _trace_level(scn, lights, n_lights, bg, state, spawn,
     rcb = (pr + mop * hit["gb"]) * ib
     rsig = (rcr >= _MIN_SIG) | (rcg >= _MIN_SIG) | (rcb >= _MIN_SIG)
     ggate = spawn_m & rsig
-    g_ir = _selw(ggate, rcr, f32(0.0))
-    g_ig = _selw(ggate, rcg, f32(0.0))
-    g_ib = _selw(ggate, rcb, f32(0.0))
+    g_ir = jnp.where(ggate, rcr, f32(0.0))
+    g_ig = jnp.where(ggate, rcg, f32(0.0))
+    g_ib = jnp.where(ggate, rcb, f32(0.0))
 
     perp = f32(2.0) * (dx * nx + dy * ny + dz * nz)
     gx, gy, gz = dx - perp * nx, dy - perp * ny, dz - perp * nz
     g2 = gx * gx + gy * gy + gz * gz
-    ginv = jax.lax.rsqrt(_selw(g2 == 0, f32(1.0), g2))
+    ginv = jax.lax.rsqrt(jnp.where(g2 == 0, f32(1.0), g2))
     gx, gy, gz = gx * ginv, gy * ginv, gz * ginv
     gox, goy, goz = hx + _SHIFT * gx, hy + _SHIFT * gy, hz + _SHIFT * gz
 
-    cat = lambda p, q: jnp.concatenate([p, q], axis=0)
-    children = (
-        cat(hx, gox), cat(hy, goy), cat(hz, goz),
-        cat(rdx, gx), cat(rdy, gy), cat(rdz, gz),
-        cat(r_ir, g_ir), cat(r_ig, g_ig), cat(r_ib, g_ib),
-    )
-    if medium_idx is not None:
-        c_mix = jnp.where(t_in, t_idx.astype(f32), f32(-1.0))
-        children = children + (cat(c_mix, medium_idx),)
-    else:
-        children = children + (
-            cat(tmmr, mmr), cat(tmmg, mmg), cat(tmmb, mmb),
-            cat(tior_bg, mior), cat(tmop, mop),
-        )
-    return emissions, children
+    refr = (hx, hy, hz, rdx, rdy, rdz, r_ir, r_ig, r_ib,
+            tmmr, tmmg, tmmb, tior_bg, tmop)
+    refl = (gox, goy, goz, gx, gy, gz, g_ir, g_ig, g_ib,
+            mmr, mmg, mmb, mior, mop)
+    return emissions, (refr, refl)
 
 
-def _trace_tree(scn, lights, bg, n_lights, max_depth,
-                dx, dy, dz, early_exit=True, remat=False):
-    """Run the full bounce tree for one tile's camera rays; returns the
-    un-weighted (acc_r, acc_g, acc_b) pixel sums.  `early_exit` wraps each
-    level >= 1 in a whole-tile liveness cond (exact: masked-off children
-    carry intensity exactly 0); the backward kernel disables it so its
-    reverse sweep sees straight-line code.  `remat` wraps levels in
-    jax.checkpoint for jnp-land callers only — it has no Pallas lowering;
-    the backward kernel does its own per-level rematerialization instead."""
+def _trace_tree(scene, n_spheres, lights, n_lights, bg, depth, dx, dy, dz):
+    """Depth-first walk of one block's bounce tree; returns the un-weighted
+    (r, g, b) pixel sums.
+
+    The walk is a while loop over tree nodes in pre-order.  Each step runs
+    the node at `level`: an inner node with a live lane runs the full level
+    (emission + children), follows its refracted child and pushes its
+    reflected child into stack slot `level` (bit `level` of `pending`); a
+    leaf runs the emission only; a node dead on every lane is skipped, and
+    with it its whole subtree.  After a leaf or a skip the deepest pending
+    slot is popped.  `level` and `pending` are block-uniform scalars, so
+    every branch is uniform across the block's lanes."""
     zero = jnp.zeros(dx.shape, f32)
     one = jnp.ones(dx.shape, f32)
-    rows, lanes = dx.shape
-    state = (zero, zero, zero, dx, dy, dz, one, one, one,
-             zero + bg["matte_r"], zero + bg["matte_g"],
-             zero + bg["matte_b"], zero + bg["ior"],
-             zero + bg["opacity"])
+    state0 = (zero, zero, zero, dx, dy, dz, one, one, one,
+              zero + bg["matte_r"], zero + bg["matte_g"],
+              zero + bg["matte_b"], zero + bg["ior"], zero + bg["opacity"])
+    level_fn = functools.partial(_trace_level, scene, n_spheres, lights,
+                                 n_lights, bg)
+    if depth == 0:
+        em, _ = level_fn(state0, spawn=False)
+        return em
 
-    # skip_dead_shading stays off: the nested liveness cond around the
-    # shadow loops blew Mosaic compile times by >10x when tried; the chunked
-    # early exit below already skips dead row-chunks wholesale.
-    def compute(st, spawn):
-        (er, eg, eb), children = _trace_level(
-            scn, lights, n_lights, bg, st, spawn=spawn)
-        return (er, eg, eb), (children if spawn else ())
+    def inner(st):
+        em, (refr, refl) = level_fn(st, spawn=True)
+        return em, refr, refl
 
-    if remat:
-        compute = jax.checkpoint(compute)
+    def leaf(st):
+        em, _ = level_fn(st, spawn=False)
+        return em, st, st
 
-    def dead(st, spawn):
-        # Operand-derived zero under blend mode (x*0, exact for the finite
-        # values the tracer guarantees): a cond output constant in one
-        # branch becomes a vector arith.select Mosaic cannot legalize once
-        # the cond is DIFFERENTIATED (the forward-only cond tolerates the
-        # constant form).
-        z = st[6] * f32(0.0) if _BLEND_SELECTS else jnp.zeros_like(st[6])
-        return ((z, z, z),
-                tuple(jnp.concatenate([s, s], axis=0)
-                      for s in st) if spawn else ())
+    def dead(st):
+        return (zero, zero, zero), st, st
 
-    def guarded(st, spawn):
-        ir, ig, ib = st[6], st[7], st[8]
-        alive = jnp.max(jnp.maximum(ir, jnp.maximum(ig, ib))) > 0
-        return jax.lax.cond(alive,
-                            lambda s: compute(s, spawn),
-                            lambda s: dead(s, spawn), st)
+    def cond(carry):
+        return carry[1] >= 0
 
-    def fold(acc3, em3):
-        out = []
-        for a, e in zip(acc3, em3):
-            blocks = e.shape[0] // rows
-            out.append(a + e.reshape(blocks, rows, lanes).sum(axis=0))
-        return tuple(out)
+    def body(carry):
+        state, level, pending, stack, acc = carry
+        alive = jnp.max(jnp.maximum(state[6],
+                                    jnp.maximum(state[7], state[8]))) > 0
+        # 0 = inner node, 1 = leaf, 2 = dead (int arithmetic: the Triton
+        # lowering mistypes a select between integer constants).
+        live_i = alive.astype(jnp.int32)
+        branch = (live_i * (level >= depth).astype(jnp.int32)
+                  + (1 - live_i) * 2)
+        em, refr, refl = jax.lax.switch(branch, (inner, leaf, dead), state)
+        acc = tuple(a + e for a, e in zip(acc, em))
+        spawned = branch == 0
+        # Push: the reflected child waits in slot `level`.
+        stack = tuple(
+            tuple(jnp.where(spawned & (level == k), r, s)
+                  for r, s in zip(refl, slot))
+            for k, slot in enumerate(stack))
+        pending = jnp.where(spawned, pending | (1 << level), pending)
+        # Pop: the deepest pending slot (-1 when the walk is done).
+        top = jnp.int32(-1)
+        for k in range(depth):
+            top = jnp.where((pending >> k) & 1 == 1, k, top)
+        popped = stack[0]
+        for k in range(1, depth):
+            popped = tuple(jnp.where(top == k, s, p)
+                           for s, p in zip(stack[k], popped))
+        state = tuple(jnp.where(spawned, r, p) for r, p in zip(refr, popped))
+        pending = jnp.where(spawned, pending,
+                            pending & ~(1 << jnp.maximum(top, 0)))
+        level = jnp.where(spawned, level + 1,
+                          jnp.where(top >= 0, top + 1, -1))
+        return state, level, pending, stack, acc
 
-    acc = (zero, zero, zero)
-    for level in range(max_depth + 1):
-        spawn = level < max_depth
-        rows_cur = state[0].shape[0]
-        if not spawn and rows_cur > 4 * TILE_ROWS * 8:
-            # The deepest level is the widest and spawns nothing: process it
-            # in sequential row chunks so its intersection/shading temps
-            # don't blow VMEM at depth 6 (512 sublanes otherwise).
-            chunk = 4 * TILE_ROWS * 8
-            for c0 in range(0, rows_cur, chunk):
-                sub = tuple(x[c0:c0 + chunk] for x in state)
-                em_c, _ = (guarded(sub, False) if early_exit
-                           else compute(sub, False))
-                acc = fold(acc, em_c)
-            state = ()
-            continue
-        if level == 0 or not early_exit:
-            emissions, children = compute(state, spawn)
-        else:
-            emissions, children = guarded(state, spawn)
-        acc = fold(acc, emissions)
-        state = children
-    return acc
+    stack0 = tuple(tuple(zero for _ in state0) for _ in range(depth))
+    carry = (state0, jnp.int32(0), jnp.int32(0), stack0, (zero, zero, zero))
+    return jax.lax.while_loop(cond, body, carry)[4]
 
 
 def _camera_dirs(cfg: RenderConfig, gid, si, sj):
     """Camera model (raytrace_kernel.cl:908-952) for an int32 gid block."""
     alias = cfg.alias_factor
     w, h = cfg.width, cfg.height
-    ix = (gid % w).astype(f32)
-    iy = (gid // w).astype(f32)
+    # lax.rem/div (truncating) equal % and // here: every operand is
+    # non-negative, and the Triton lowering takes them directly.
+    ix = jax.lax.rem(gid, w).astype(f32)
+    iy = jax.lax.div(gid, w).astype(f32)
     xstep = f32(cfg.image_world_width / w)
     ystep = f32(cfg.image_world_height / h)
     aspect = f32(cfg.image_world_width / cfg.image_world_height)
@@ -795,93 +463,72 @@ def _camera_dirs(cfg: RenderConfig, gid, si, sj):
     return x * inv, y * inv, z * inv
 
 
+class _Table:
+    """[row, i] reads of a row-major (rows, n) table stored flat at `base`
+    of a 1-D kernel ref; `i` may be a Python int or a traced loop index."""
+
+    def __init__(self, ref, base: int, n: int):
+        self.ref, self.base, self.n = ref, base, n
+
+    def __getitem__(self, key):
+        row, i = key
+        return self.ref[self.base + row * self.n + i]
+
+
+def _scene_table(scene):
+    """The scene as one flat float32 table, padded to a power of two:
+    [12 x N sphere rows | 6 x L light rows | 5 background values]."""
+    sph = scene.spheres
+    rows = [sph.pos[:, 0], sph.pos[:, 1], sph.pos[:, 2], sph.radius,
+            sph.matte[:, 0], sph.matte[:, 1], sph.matte[:, 2],
+            sph.gloss[:, 0], sph.gloss[:, 1], sph.gloss[:, 2],
+            sph.opacity, sph.ior,
+            scene.lights.pos[:, 0], scene.lights.pos[:, 1],
+            scene.lights.pos[:, 2], scene.lights.col[:, 0],
+            scene.lights.col[:, 1], scene.lights.col[:, 2],
+            scene.bg.matte, jnp.stack([scene.bg.ior, scene.bg.opacity])]
+    flat = jnp.concatenate([jnp.ravel(r).astype(f32) for r in rows])
+    size = 1 << max(int(flat.shape[0]) - 1, 1).bit_length()
+    return jnp.pad(flat, (0, size - flat.shape[0]))
+
+
 def _make_kernel(cfg: RenderConfig, n_spheres: int, n_lights: int,
-                 total_pixels: int, stride: int = 1):
+                 stride: int):
     alias = cfg.alias_factor
+    total_pixels = cfg.num_pixels
+    light_base = SCENE_ROWS * n_spheres
+    bg_base = light_base + LIGHT_ROWS * n_lights
 
-    def kernel(scene_ref, scene_vmem_ref, lights_ref, bg_ref, offset_ref,
-               out_ref):
-        bg = dict(matte_r=bg_ref[0, 0], matte_g=bg_ref[1, 0],
-                  matte_b=bg_ref[2, 0], ior=bg_ref[3, 0],
-                  opacity=bg_ref[4, 0])
-        vals = (scene_vmem_ref[:] if n_spheres > UNROLL_SPHERES else None)
-        tile = pl.program_id(0)
-
-        rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, LANES), 0)
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, LANES), 1)
+    def kernel(tbl_ref, off_ref, out_r, out_g, out_b):
+        scene = _Table(tbl_ref, 0, n_spheres)
+        lights = _Table(tbl_ref, light_base, n_lights)
+        bg = dict(matte_r=tbl_ref[bg_base], matte_g=tbl_ref[bg_base + 1],
+                  matte_b=tbl_ref[bg_base + 2], ior=tbl_ref[bg_base + 3],
+                  opacity=tbl_ref[bg_base + 4])
+        lane = jax.lax.broadcasted_iota(jnp.int32, (BLOCK,), 0)
         # stride > 1: this launch owns the INTERLEAVED pixel set
         # {offset + j*stride} — the per-shard form that balances the
-        # frame's hot strips across devices (BASELINE.md round-4
-        # shard-balance study; stride = mesh size, offset = shard id).
-        gid = offset_ref[0, 0] + (tile * TILE_PIXELS + rows * LANES
-                                  + lanes) * stride
-        gid = jnp.minimum(gid, total_pixels - 1)  # pad tail re-renders
+        # frame's hot strips across devices (stride = mesh size, offset =
+        # shard id).  Pad lanes past the frame re-render the last pixel.
+        gid = off_ref[0] + (pl.program_id(0) * BLOCK + lane) * stride
+        gid = jnp.minimum(gid, total_pixels - 1)
 
-        # All alias^2 supersamples in one grid step (raytrace_kernel.cl:945):
-        # fewer, fatter grid steps amortise per-step dispatch overhead.  The
-        # sample loop is a fori (not unrolled) to keep the Mosaic program a
-        # constant factor of the tree size — deep/many-sphere configs
-        # otherwise explode compile time.
         def sample_body(s, acc):
-            acc_r, acc_g, acc_b = acc
-            si = s // alias
-            sj = s % alias
-            dx, dy, dz = _camera_dirs(cfg, gid, si, sj)
-            sr, sg, sb = _trace_tree(
-                _SmemScene(scene_ref, n_spheres, vals), lights_ref, bg,
-                n_lights, cfg.max_depth, dx, dy, dz, early_exit=True)
-            return acc_r + sr, acc_g + sg, acc_b + sb
+            dx, dy, dz = _camera_dirs(cfg, gid, jax.lax.div(s, alias),
+                                      jax.lax.rem(s, alias))
+            em = _trace_tree(scene, n_spheres, lights, n_lights, bg,
+                             cfg.max_depth, dx, dy, dz)
+            return tuple(a + e for a, e in zip(acc, em))
 
-        zeros3 = (jnp.zeros((TILE_ROWS, LANES), f32),
-                  jnp.zeros((TILE_ROWS, LANES), f32),
-                  jnp.zeros((TILE_ROWS, LANES), f32))
-        if alias == 1:
-            acc_r, acc_g, acc_b = sample_body(jnp.int32(0), zeros3)
-        else:
-            acc_r, acc_g, acc_b = jax.lax.fori_loop(
-                0, alias * alias, sample_body, zeros3)
-
+        zero = jnp.zeros((BLOCK,), f32)
+        acc = jax.lax.fori_loop(0, alias * alias, sample_body,
+                                (zero, zero, zero))
         weight = f32(1.0 / (alias * alias))
-        out_ref[:] = jnp.stack([acc_r * weight, acc_g * weight,
-                                acc_b * weight])  # (3, TILE_ROWS, LANES)
+        out_r[...] = acc[0] * weight
+        out_g[...] = acc[1] * weight
+        out_b[...] = acc[2] * weight
 
     return kernel
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "interpret", "count", "stride"))
-def _forward_tiles(scene, cfg: RenderConfig, interpret: bool, offset,
-                   count: int, stride: int = 1):
-    """The fused forward kernel launch: (3, tiles*TILE_ROWS, LANES) native
-    tiled output for pixels {offset + j*stride : j < count}."""
-    n_spheres = scene.spheres.pos.shape[0]
-    n_lights = scene.lights.pos.shape[0]
-    scene_tbl, lights_tbl, bg_tbl = _scene_tables(scene)
-    offset_tbl = jnp.asarray(offset, jnp.int32).reshape(1, 1)
-    tiles = -(-count // TILE_PIXELS)
-
-    kernel = _make_kernel(cfg, n_spheres, n_lights, cfg.num_pixels, stride)
-    return pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        compiler_params=pltpu.CompilerParams(
-            # Mosaic's default 16M scoped-vmem budget is conservative; deep
-            # trees (depth 6) need more for the widest level's temporaries.
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # selection loops
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # gather value table
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((3, TILE_ROWS, LANES),
-                               lambda t: (0, t, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((3, tiles * TILE_ROWS, LANES),
-                                       jnp.float32),
-        interpret=interpret,
-    )(scene_tbl, scene_tbl, lights_tbl, bg_tbl, offset_tbl)
 
 
 @functools.partial(jax.jit,
@@ -893,637 +540,37 @@ def render_pixels_pallas(scene, cfg: RenderConfig, interpret: bool = False,
     fused kernel -> (count, 3) colours (stride 1 = a flat block, the
     default full frame).
 
-    The scene rides in as two packed SMEM tables; sphere/light counts and
-    every config knob are compile-time constants, as in the reference where
-    they are kernel arguments resolved per launch (main.cpp:338-350).
-    `offset` is a traced scalar so a shard_map body can render its own pixel
-    shard (count = pixels per device, offset = shard base; `stride` = mesh
-    size for the interleaved sharding that balances hot strips across
-    devices — BASELINE.md round-4 shard-balance study).
+    Sphere/light counts and every config knob are compile-time constants,
+    as in the reference where they are kernel arguments resolved per launch
+    (main.cpp:338-350).  `offset` is a traced scalar so a shard_map body
+    can render its own pixel shard (count = pixels per device, offset =
+    shard base; `stride` = mesh size for the interleaved sharding).
+    `interpret` runs the kernel in the Pallas interpreter (for tests on
+    the CPU); otherwise it compiles through Triton for the GPU.
     """
     if count is None:
         count = cfg.num_pixels
-    out = _forward_tiles(scene, cfg, interpret, offset, count, stride)
-    return unpack_pixel_tiles(out, count)
+    n_spheres = scene.spheres.pos.shape[0]
+    n_lights = scene.lights.pos.shape[0]
+    blocks = -(-count // BLOCK)
+    out_spec = pl.BlockSpec((BLOCK,), lambda b: (b,))
+    r, g, b = pl.pallas_call(
+        _make_kernel(cfg, n_spheres, n_lights, stride),
+        grid=(blocks,),
+        in_specs=[pl.no_block_spec, pl.no_block_spec],
+        out_specs=(out_spec, out_spec, out_spec),
+        out_shape=tuple(jax.ShapeDtypeStruct((blocks * BLOCK,), f32)
+                        for _ in range(3)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="raytpu_dense_forward",
+    )(_scene_table(scene), jnp.asarray(offset, jnp.int32).reshape(1))
+    return jnp.stack([r, g, b], axis=-1)[:count]
 
 
 def render_image_pallas(scene, cfg: RenderConfig, interpret: bool = False):
     """(H, W, 3) frame via the fused kernel."""
     out = render_pixels_pallas(scene, cfg, interpret=interpret)
     return out.reshape(cfg.height, cfg.width, 3)
-
-
-# ---------------------------------------------------------------------------
-# Backward: a hand-fused gradient kernel via custom_vjp.
-#
-# The bounce tree is rebuilt per tile as a pure function of a traced
-# (SCENE_ROWS, N) scene value table (read once from VMEM) plus the light/bg
-# scalars, and jax.vjp runs on it INSIDE the kernel — Mosaic compiles the
-# resulting forward+reverse sweep like any other kernel body.  The _VjpScene
-# provider keeps every sphere-indexed decision (closest-hit argmin, container
-# first-match, shadow masks) in non-differentiable fori_loops over the SMEM
-# copy of the scene, and routes field values through one-hot-matmul gathers
-# of the VMEM value table, so the differentiated program is matmuls +
-# elementwise ops only: compile time is independent of the sphere count (no
-# static unrolling, no fori transpose), and sphere-parameter cotangents fall
-# out of the gather matmuls' transposes as (SCENE_ROWS, N) arrays that
-# accumulate across the sequential (tile, sample) grid.
-#
-# BWD_MAX_SPHERES is now only a VMEM-budget guard (the one-hot tables are
-# (N, chunk_rays) floats); the per-level ray chunking shrinks with N to keep
-# them bounded.
-# ---------------------------------------------------------------------------
-
-BWD_MAX_SPHERES = 4096
-
-
-def _bwd_alive(st):
-    """Whole-block liveness predicate for the backward early exit (module
-    level so the skip-exactness test can monkeypatch it to always-true and
-    bit-compare against the guarded run — same cond structure, so identical
-    compilation, isolating the predicate's effect)."""
-    return jnp.max(jnp.maximum(st[6], jnp.maximum(st[7], st[8]))) > 0
-
-
-# Full-tree backward: one jax.vjp over the whole bounce tree instead of the
-# per-level remat sweep — saves the states-build pass (one forward's worth
-# of work on live tiles) by letting the vjp's own primal produce every
-# level, at the cost of holding all levels' AD residuals at once.
-# MEASURED AND REJECTED as the default (round 3, 640x480 d4 N3 on v5e):
-# 32.4 ms vs the per-level sweep's 25.2 ms.  Two reasons: (1) the early
-# exit cannot ride along — differentiating _trace_tree's liveness conds
-# produces a transposed scf.if with vector-i1 residual outputs Mosaic
-# fails to legalize — so the full tree runs straight-line and pays every
-# dead tile in full, which costs more than the rebuild it saves on this
-# frame (~most tiles are background); (2) the residual set scales with
-# the whole tree.  Kept behind RAYTPU_BWD_FULLTREE=always for scenes with
-# ~no dead tiles, and pinned against the per-level sweep by
-# tests/test_pallas.py::test_bwd_fulltree_matches_per_level.
-#
-# Round 5 re-opens reason (1): RAYTPU_BWD_FULLTREE=ee differentiates
-# THROUGH the liveness conds with the level bodies in blend form
-# (_BLEND_SELECTS), so every residual crossing a cond boundary is f32 and
-# Mosaic legalizes the transposed scf.if (reduced repro:
-# tools/probe_cond_f32_residuals.py).  Values and cotangents are bitwise
-# equal to the select forms for finite operands (a*1 = a, b*0 = 0).
-BWD_FULLTREE = "never"
-
-
-def _bwd_use_fulltree(depth: int, n_spheres: int, n_lights: int) -> str:
-    """"" (use the per-level sweep), "always" (straight-line full tree)
-    or "ee" (full tree with differentiated early-exit conds, blend form)."""
-    import os
-    mode = os.environ.get("RAYTPU_BWD_FULLTREE", BWD_FULLTREE)
-    return mode if mode in ("always", "ee") else ""
-
-
-def _bwd_tile_grads_fulltree(scene_sel, sv, lv, bgv, n_spheres, n_lights,
-                             depth, dx, dy, dz, gw, early_exit=False):
-    """Full-tree variant of _bwd_tile_grads: differentiate the whole bounce
-    tree (the same _trace_tree program the forward kernel runs, via
-    _VjpScene) in ONE jax.vjp.  Compared to the per-level remat sweep this
-    skips the states-build pass — one forward's worth of arithmetic on live
-    tiles — because the vjp's own primal pass produces every level.  The
-    price is the full tree's AD residual set held at once (see
-    _bwd_fulltree_residual_bytes); _bwd_use_fulltree gates on it.
-
-    Gradient semantics are identical to the per-level sweep (the autodiff-
-    equivalence test differentiates exactly this program shape); state0's
-    medium fields are built from bgv inside _trace_tree, so the background
-    cotangent needs no manual fold here.
-
-    early_exit=True (round 5, RAYTPU_BWD_FULLTREE=ee): differentiate
-    THROUGH the liveness conds with the level bodies in blend form
-    (_BLEND_SELECTS) so the transposed scf.if's residuals are f32-only —
-    the vector-i1 residuals that killed this in round 3 never exist
-    (reduced repro tools/probe_cond_f32_residuals.py).  Dead tiles then
-    skip both the primal AND the transpose sweep, combining the
-    per-level sweep's early exit with the full tree's no-rebuild."""
-    global _BLEND_SELECTS
-
-    def weighted(sv_, lv_, bgv_):
-        scn = _VjpScene(scene_sel, sv_, n_spheres)
-        lights = _ScalarTable(lv_)
-        bg = dict(matte_r=bgv_[0], matte_g=bgv_[1], matte_b=bgv_[2],
-                  ior=bgv_[3], opacity=bgv_[4])
-        ar, ag, ab = _trace_tree(scn, lights, bg, n_lights, depth,
-                                 dx, dy, dz, early_exit=early_exit)
-        return jnp.sum(ar * gw[0] + ag * gw[1] + ab * gw[2])
-
-    if early_exit:
-        _BLEND_SELECTS = True
-    try:
-        _, vjp = jax.vjp(weighted, sv, lv, bgv)
-        out = vjp(f32(1.0))
-    finally:
-        _BLEND_SELECTS = False
-    return out
-
-
-def _bwd_tile_grads(scene_sel, sv, lv, bgv, n_spheres, n_lights, depth,
-                    dx, dy, dz, gw, early_exit=True, skip_shading=None):
-    """Entry for the per-level sweep: dispatches to the straight-line form
-    or, with RAYTPU_BWD_SKIP_SHADING=1 (or skip_shading=True), the variant
-    whose reverse vjps guard the lights x spheres shadow/matte block
-    behind a DIFFERENTIATED mgate-liveness cond — possible since round 5's
-    blend mode keeps every cond-crossing residual f32 (see _BLEND_SELECTS;
-    blend == select bitwise, pinned by
-    test_blend_selects_bitwise_equal_straightline)."""
-    import os
-    if skip_shading is None:
-        skip_shading = os.environ.get("RAYTPU_BWD_SKIP_SHADING", "") == "1"
-    if not skip_shading:
-        return _bwd_tile_grads_impl(scene_sel, sv, lv, bgv, n_spheres,
-                                    n_lights, depth, dx, dy, dz, gw,
-                                    early_exit)
-    global _BLEND_SELECTS
-    _BLEND_SELECTS = True
-    try:
-        return _bwd_tile_grads_impl(scene_sel, sv, lv, bgv, n_spheres,
-                                    n_lights, depth, dx, dy, dz, gw,
-                                    early_exit, skip_shading=True)
-    finally:
-        _BLEND_SELECTS = False
-
-
-def _bwd_tile_grads_impl(scene_sel, sv, lv, bgv, n_spheres, n_lights, depth,
-                         dx, dy, dz, gw, early_exit=True,
-                         skip_shading=False):
-    """Per-tile reverse sweep: gradients of sum(levels' emissions * gw) with
-    respect to (sv, lv, bgv) plus nothing else — the pure orchestration the
-    backward kernel runs per (tile, sample), extracted so tests can execute
-    it eagerly outside a pallas_call.
-
-    scene_sel: [row, i]-indexable non-differentiable scene access for the
-    selection loops (the SMEM ref in-kernel, any array outside).
-    sv: (SCENE_ROWS, N) traced value table (the differentiable scene input).
-
-    Manual per-level rematerialization (jax.checkpoint's remat2 has no
-    Pallas lowering): the forward stores only each level's input state; the
-    reverse sweep re-runs one level at a time under a local jax.vjp, so AD
-    residuals never exceed one level's working set.
-
-    Early exit, backward edition: every level/chunk (states build AND
-    reverse sweep) is guarded by a whole-block liveness cond, exactly like
-    the forward kernel's `guarded`.  Exact, by the same argument as the
-    forward's: an exactly-zero intensity only ever arises through a
-    where-mask or a clamped Fresnel factor (both zero local derivative) or
-    a product with such a zero — inductively from the all-live camera rays,
-    dead lanes carry zero intensity AND zero intensity-derivative, so an
-    all-dead block contributes exactly-zero scene cotangents and its true
-    input-state cotangents are either zero (positions/dirs/medium) or get
-    multiplied by zero-derivative masked paths in the parent's vjp
-    (intensities).  The cond wraps the jax.vjp CALL (this sweep is manual
-    orchestration, never itself differentiated), so Mosaic sees a plain
-    scf.if around straight-line code.  Pure-background tiles — most of a
-    typical frame — then skip every level past the first.
-
-    early_exit=False removes every cond, restoring a straight-line sweep:
-    the eager noise-free-vs-autodiff test needs it, because a cond branch is
-    compiled as one fused XLA sub-computation whose FMA-contraction choices
-    differ from eager op-by-op execution — flipping hit/shadow branches on
-    near-tangent lanes (the usual measure-zero noise class), which that
-    test's bit-level comparison cannot absorb."""
-
-    def level_fn(sv_vals, lv_vals, bgv_vals, st, spawn, emit=True,
-                 sel=None, sel_out=False):
-        scn = _VjpScene(scene_sel, sv_vals, n_spheres, sel=sel)
-        lights = _ScalarTable(lv_vals)
-        bg = dict(matte_r=bgv_vals[0], matte_g=bgv_vals[1],
-                  matte_b=bgv_vals[2], ior=bgv_vals[3],
-                  opacity=bgv_vals[4])
-        em, children = _trace_level(
-            scn, lights, n_lights, bg, st, spawn=spawn, emit=emit,
-            skip_dead_shading=skip_shading and emit)
-        out = em, (children if spawn else ())
-        if sel_out:
-            return out + (tuple(scn.sel_rec),)
-        return out
-
-    zero = jnp.zeros((TILE_ROWS, LANES), f32)
-    one = jnp.ones((TILE_ROWS, LANES), f32)
-    state0 = (zero, zero, zero, dx, dy, dz, one, one, one,
-              zero + bgv[0], zero + bgv[1], zero + bgv[2],
-              zero + bgv[3], zero + bgv[4])
-
-    # States build: only the children matter (emit=False skips the miss
-    # paint and the lights x spheres shadow/matte block — children depend
-    # on refraction/reflection, never on shading).  The build's selection
-    # loops (closest-hit argmin + container first-match) are saved per
-    # level and FORWARDED into the reverse sweep's vjp primal, which then
-    # skips both fori loops — the selections are deterministic in
-    # (scene, state), so the reverse recompute was pure duplication
-    # (round-4 residual-forwarding; the full-tree alternative stays
-    # rejected, see _bwd_tile_grads_fulltree).
-    states = [state0]
-    sels = []
-    for level in range(depth):
-        st = states[level]
-        if level == 0 or not early_exit:
-            _, children, sel = level_fn(sv, lv, bgv, st, True, emit=False,
-                                        sel_out=True)
-        else:
-            # Dead branch outputs derive from the operand (concat x 0), not
-            # constants: a cond output that is constant in one branch gets
-            # rewritten into a scalar-pred VECTOR select Mosaic cannot
-            # legalize (tools/mosaic_repros.py cond_vector_select); the
-            # operand-derived form lowers as a plain scf.if, like the
-            # forward kernel's `dead`.  x * 0 is exactly 0.0 for the finite
-            # values the tracer guarantees.  The dead sel indices go
-            # through f32 (x*0 stays un-folded under float semantics)
-            # before the int cast; their value (-1 = none) is never
-            # consumed — the reverse sweep's matching dead cond skips the
-            # vjp — but -1 keeps them semantically honest.
-            def dead(s):
-                ch = tuple(jnp.concatenate([x, x], axis=0) * f32(0.0)
-                           for x in s)
-                no_idx = (s[0] * f32(0.0) - f32(1.0)).astype(jnp.int32)
-                return ch, (no_idx, no_idx)
-            children, sel = jax.lax.cond(
-                _bwd_alive(st),
-                lambda s: level_fn(sv, lv, bgv, s, True, emit=False,
-                                   sel_out=True)[1:],
-                dead, st)
-        states.append(children)
-        sels.append(sel)
-
-    def addt(a, b):
-        return jax.tree_util.tree_map(jnp.add, a, b)
-
-    # Wide levels are vjp'd in sequential row chunks: the level function
-    # is row-elementwise, parent rows [c0, c0+CH) map to child rows
-    # [c0, c0+CH) (refraction half) and [rows+c0, rows+c0+CH)
-    # (reflection half) of the concatenated children, and scene
-    # cotangents just sum over chunks.  This bounds the reverse sweep's
-    # peak shapes to CHUNK rows.
-    # 64 rows caps each vjp's AD-residual set (the dominant scoped-VMEM
-    # consumer); larger sphere counts shrink the chunk further so the
-    # (N, CHUNK*LANES) one-hot gather tables stay bounded.  CHUNK must be
-    # TILE_ROWS * 2^k: level widths are TILE_ROWS * 2^level, and a chunk
-    # size that doesn't divide them leaves a partial tail chunk whose
-    # shapes mismatch the full-CHUNK cotangents (jax.vjp shape error —
-    # e.g. N=300 used to pick CHUNK=48 against a 64-row level).
-    budget = max(TILE_ROWS,
-                 min(8 * TILE_ROWS,
-                     (16384 // max(n_spheres, 1)) // TILE_ROWS
-                     * TILE_ROWS))
-    CHUNK = TILE_ROWS
-    while CHUNK * 2 <= budget:
-        CHUNK *= 2
-
-    d_sv = d_lv = d_bgv = None
-    cot_children = ()
-    for level in range(depth, -1, -1):
-        spawn = level < depth
-        rows_l = TILE_ROWS * 2 ** level
-        # Spawn levels re-use the build's saved selections; the last level
-        # has no build pass, so its vjp primal runs the loops itself (once,
-        # as before).
-        sel_l = sels[level] if spawn else None
-        cot_em1 = tuple(
-            jnp.broadcast_to(g, (CHUNK // TILE_ROWS, TILE_ROWS, LANES))
-            .reshape(CHUNK, LANES) for g in gw) if rows_l > CHUNK else \
-            tuple(jnp.broadcast_to(g, (2 ** level, TILE_ROWS, LANES))
-                  .reshape(rows_l, LANES) for g in gw)
-
-        def vjp_block(st_b, cc_b, guard, sel_b=None):
-            def run(args):
-                st_, cc_ = args
-                fn = lambda s_, l_, b_, st: level_fn(s_, l_, b_, st, spawn,
-                                                     sel=sel_b)
-                _, vjp = jax.vjp(fn, sv, lv, bgv, st_)
-                return vjp((cot_em1, cc_))
-            if not guard:
-                return run((st_b, cc_b))
-
-            def dead(args):
-                # Operand-derived zeros, not constants — see the states
-                # build above (Mosaic cond_vector_select legalization).
-                st_, _ = args
-                z = jax.tree_util.tree_map(lambda x: x * f32(0.0),
-                                           (sv, lv, bgv))
-                return z + (jax.tree_util.tree_map(
-                    lambda x: x * f32(0.0), st_),)
-
-            return jax.lax.cond(_bwd_alive(st_b), run, dead, (st_b, cc_b))
-
-        if rows_l <= CHUNK:
-            ds, dl, db, cot_state = vjp_block(states[level], cot_children,
-                                              early_exit and level > 0,
-                                              sel_b=sel_l)
-        else:
-            cot_state_parts = []
-            ds = dl = db = None
-            for c0 in range(0, rows_l, CHUNK):
-                st_c = tuple(s[c0:c0 + CHUNK] for s in states[level])
-                sel_c = (tuple(s[c0:c0 + CHUNK] for s in sel_l)
-                         if sel_l is not None else None)
-                cc_c = tuple(
-                    jnp.concatenate([cc[c0:c0 + CHUNK],
-                                     cc[rows_l + c0:rows_l + c0 + CHUNK]],
-                                    axis=0)
-                    for cc in cot_children) if spawn else ()
-                ds_c, dl_c, db_c, cot_c = vjp_block(st_c, cc_c, early_exit,
-                                                    sel_b=sel_c)
-                ds = ds_c if ds is None else addt(ds, ds_c)
-                dl = dl_c if dl is None else addt(dl, dl_c)
-                db = db_c if db is None else addt(db, db_c)
-                cot_state_parts.append(cot_c)
-            cot_state = tuple(
-                jnp.concatenate([p[k] for p in cot_state_parts], axis=0)
-                for k in range(len(cot_state_parts[0])))
-        d_sv = ds if d_sv is None else addt(d_sv, ds)
-        d_lv = dl if d_lv is None else addt(d_lv, dl)
-        d_bgv = db if d_bgv is None else addt(d_bgv, db)
-        cot_children = cot_state
-
-    # state0's medium fields are built from the background scalars
-    # (state0[9..13] = bg), so the final state cotangent folds into the
-    # bg gradient — the path the per-level sweep would otherwise drop.
-    d_bgv = tuple(d_bgv[k] + jnp.sum(cot_children[9 + k])
-                  for k in range(5))
-    return d_sv, d_lv, d_bgv
-
-
-def _make_bwd_kernel(cfg: RenderConfig, n_spheres: int, n_lights: int,
-                     total_pixels: int, stride: int = 1):
-    alias = cfg.alias_factor
-
-    def kernel(scene_ref, scene_vmem_ref, lights_ref, bg_ref, offset_ref,
-               g_ref, gscene_ref, glights_ref, gbg_ref):
-        tile = pl.program_id(0)
-        sample = pl.program_id(1)
-        si = sample // alias
-        sj = sample % alias
-
-        sv = scene_vmem_ref[:]  # (SCENE_ROWS, N) traced values: vjp input
-        lv = tuple(tuple(lights_ref[r, l] for l in range(n_lights))
-                   for r in range(LIGHT_ROWS))
-        bgv = tuple(bg_ref[k, 0] for k in range(5))
-
-        rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, LANES), 0)
-        lanes = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, LANES), 1)
-        # stride > 1: interleaved pixel set (see the forward kernel).
-        gid = offset_ref[0, 0] + (tile * TILE_PIXELS + rows * LANES
-                                  + lanes) * stride
-        gid = jnp.minimum(gid, total_pixels - 1)
-        dx, dy, dz = _camera_dirs(cfg, gid, si, sj)
-
-        weight = f32(1.0 / (alias * alias))
-        gw = (g_ref[0] * weight, g_ref[1] * weight, g_ref[2] * weight)
-
-        mode = _bwd_use_fulltree(cfg.max_depth, n_spheres, n_lights)
-        if mode:
-            d_sv, d_lv, d_bgv = _bwd_tile_grads_fulltree(
-                scene_ref, sv, lv, bgv, n_spheres, n_lights, cfg.max_depth,
-                dx, dy, dz, gw, early_exit=(mode == "ee"))
-        else:
-            d_sv, d_lv, d_bgv = _bwd_tile_grads(
-                scene_ref, sv, lv, bgv, n_spheres, n_lights, cfg.max_depth,
-                dx, dy, dz, gw)
-
-        first = (tile == 0) & (sample == 0)
-
-        @pl.when(first)
-        def _():
-            gscene_ref[:] = d_sv
-            for r in range(LIGHT_ROWS):
-                for l in range(n_lights):
-                    glights_ref[r, l] = d_lv[r][l]
-            for k in range(5):
-                gbg_ref[k, 0] = d_bgv[k]
-
-        @pl.when(~first)
-        def _():
-            gscene_ref[:] = gscene_ref[:] + d_sv
-            for r in range(LIGHT_ROWS):
-                for l in range(n_lights):
-                    glights_ref[r, l] = glights_ref[r, l] + d_lv[r][l]
-            for k in range(5):
-                gbg_ref[k, 0] = gbg_ref[k, 0] + d_bgv[k]
-
-    return kernel
-
-
-def _scene_tables(scene):
-    sph = scene.spheres
-    scene_tbl = jnp.stack([
-        sph.pos[:, 0], sph.pos[:, 1], sph.pos[:, 2], sph.radius,
-        sph.matte[:, 0], sph.matte[:, 1], sph.matte[:, 2],
-        sph.gloss[:, 0], sph.gloss[:, 1], sph.gloss[:, 2],
-        sph.opacity, sph.ior,
-    ])
-    lights_tbl = jnp.stack([
-        scene.lights.pos[:, 0], scene.lights.pos[:, 1], scene.lights.pos[:, 2],
-        scene.lights.col[:, 0], scene.lights.col[:, 1], scene.lights.col[:, 2],
-    ])
-    bg_tbl = jnp.stack([scene.bg.matte[0], scene.bg.matte[1],
-                        scene.bg.matte[2], scene.bg.ior,
-                        scene.bg.opacity]).reshape(5, 1)
-    return scene_tbl, lights_tbl, bg_tbl
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret", "count",
-                                             "stride"))
-def _grad_pixels_pallas(scene, cfg: RenderConfig, g, interpret: bool = False,
-                        offset=0, count: int | None = None,
-                        stride: int = 1):
-    """Scene-parameter gradients for sum(render_pixels * g): one fused
-    backward kernel over the (tile, sample) grid.
-
-    `offset`/`count` select a flat pixel block (the same contract as the
-    forward kernel) so a shard_map body can run the fused backward on its own
-    pixel shard; `g` is that block's cotangent, shape (count, 3).  Tail-pad
-    pixels re-render pixel p-1 but carry an exactly-zero cotangent, so they
-    contribute nothing to the accumulated scene gradients."""
-    if count is None:
-        count = cfg.num_pixels
-    g_tbl = pack_pixel_tiles(g, count)            # zero cotangent on tail
-    return _grad_pixels_pallas_tbl(scene, cfg, g_tbl, interpret, offset,
-                                   count, stride)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret", "count",
-                                             "stride"))
-def _grad_pixels_pallas_tbl(scene, cfg: RenderConfig, g_tbl,
-                            interpret: bool = False, offset=0,
-                            count: int | None = None, stride: int = 1):
-    """Backward-kernel core taking the cotangent already in the kernel's
-    native tiled layout: g_tbl (3, tiles*TILE_ROWS, LANES), tail-pad lanes
-    zero.  The (count, 3) API above is a pad+transpose wrapper; the
-    native-layout training step feeds this directly and skips the
-    lane-padded (P, 3) round-trip entirely."""
-    from raytpu.scene import Lights, Medium, Scene, Spheres
-
-    n_spheres = scene.spheres.pos.shape[0]
-    if n_spheres > BWD_MAX_SPHERES:
-        raise ValueError(
-            f"the fused backward kernel's one-hot gather tables support at "
-            f"most {BWD_MAX_SPHERES} spheres within the VMEM budget (got "
-            f"{n_spheres}); use raytpu.grad.loss_and_grad (jnp autodiff) "
-            f"for larger scenes")
-    n_lights = scene.lights.pos.shape[0]
-    scene_tbl, lights_tbl, bg_tbl = _scene_tables(scene)
-    offset_tbl = jnp.asarray(offset, jnp.int32).reshape(1, 1)
-
-    p = cfg.num_pixels
-    if count is None:
-        count = p
-    tiles = -(-count // TILE_PIXELS)
-
-    kernel = _make_bwd_kernel(cfg, n_spheres, n_lights, p, stride)
-    gs, gl, gb = pl.pallas_call(
-        kernel,
-        grid=(tiles, cfg.samples_per_pixel),
-        compiler_params=pltpu.CompilerParams(
-            # The reverse sweep's per-level AD residuals exceed Mosaic's
-            # default 16M scoped-vmem budget at depth >= 5; v5e has 128M
-            # physical VMEM, so raise the ceiling for this kernel.
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # scene: selection loops
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # scene: vjp value table
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((3, TILE_ROWS, LANES), lambda t, s: (0, t, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((SCENE_ROWS, n_spheres), jnp.float32),
-            jax.ShapeDtypeStruct((LIGHT_ROWS, n_lights), jnp.float32),
-            jax.ShapeDtypeStruct((5, 1), jnp.float32),
-        ),
-        interpret=interpret,
-    )(scene_tbl, scene_tbl, lights_tbl, bg_tbl, offset_tbl, g_tbl)
-
-    return Scene(
-        spheres=Spheres(
-            pos=jnp.stack([gs[_S_PX], gs[_S_PY], gs[_S_PZ]], axis=-1),
-            radius=gs[_S_RAD],
-            matte=jnp.stack([gs[_S_MR], gs[_S_MG], gs[_S_MB]], axis=-1),
-            gloss=jnp.stack([gs[_S_GR], gs[_S_GG], gs[_S_GB]], axis=-1),
-            opacity=gs[_S_OP], ior=gs[_S_IOR],
-        ),
-        lights=Lights(pos=jnp.stack([gl[0], gl[1], gl[2]], axis=-1),
-                      col=jnp.stack([gl[3], gl[4], gl[5]], axis=-1)),
-        bg=Medium(matte=gb[:3, 0], ior=gb[3, 0], opacity=gb[4, 0]),
-    )
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 4, 5))
-def render_pixels_pallas_ad(scene, cfg: RenderConfig, interpret: bool = False,
-                            offset=0, count: int | None = None,
-                            stride: int = 1):
-    """Differentiable fused render: forward = the Pallas forward kernel,
-    backward = the fused gradient kernel (scene cotangents only).
-
-    `offset` may be a traced int32 scalar (e.g. a shard_map body's gid[0])
-    and `count` a static per-shard pixel count, so the fused forward+backward
-    pair runs inside the distributed training step — the shard_map transpose
-    then psums the per-shard scene cotangents, the framework's one
-    collective.  Sphere count is bounded only by the backward kernel's
-    one-hot-gather VMEM budget (BWD_MAX_SPHERES); callers with larger scenes
-    should use the jnp tracer's autodiff."""
-    return render_pixels_pallas(scene, cfg, interpret=interpret,
-                                offset=offset, count=count, stride=stride)
-
-
-def _ad_fwd(scene, cfg, interpret, offset, count, stride):
-    out = render_pixels_pallas(scene, cfg, interpret=interpret,
-                               offset=offset, count=count, stride=stride)
-    return out, (scene, offset)
-
-
-def _ad_bwd(cfg, interpret, count, stride, res, g):
-    scene, offset = res
-    gscene = _grad_pixels_pallas(scene, cfg, g, interpret=interpret,
-                                 offset=offset, count=count, stride=stride)
-    # offset is integer-typed: its cotangent is the symbolic float0 zero.
-    g_offset = np.zeros(np.shape(offset), jax.dtypes.float0)
-    return (gscene, g_offset)
-
-
-render_pixels_pallas_ad.defvjp(_ad_fwd, _ad_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Native-layout differentiable render: the training-step fast path.
-#
-# render_pixels_pallas returns (count, 3) — a transpose of the kernel's
-# (3, rows, LANES) output — and the (count, 3) loss that follows runs on a
-# lane-padded layout (TPU pads the minor dim 3 -> 128 lanes: 42x the memory)
-# plus a second transpose for the cotangent on the way back.  The tiled
-# variants below keep the step in the kernel's own layout end to end; the
-# loss masks the tail-pad lanes instead of slicing them off.
-# ---------------------------------------------------------------------------
-
-
-def pack_pixel_tiles(flat, count: int | None = None):
-    """(count, 3) pixel data -> the kernel's (3, tiles*TILE_ROWS, LANES)
-    tiled layout (tail zero-padded).  One lane-padded transpose — do it once
-    per fit, outside the training step."""
-    if count is None:
-        count = flat.shape[0]
-    tiles = -(-count // TILE_PIXELS)
-    pad = tiles * TILE_PIXELS - count
-    fp = jnp.pad(flat, ((0, pad), (0, 0)))
-    return fp.T.reshape(3, tiles * TILE_ROWS, LANES)
-
-
-def unpack_pixel_tiles(tbl, count: int):
-    """Inverse of pack_pixel_tiles: (3, R, LANES) -> (count, 3)."""
-    return tbl.reshape(3, -1).T[:count]
-
-
-def tile_mask(count: int):
-    """(rows, LANES) f32 mask: 1 where the lane maps to a real pixel of a
-    `count`-pixel block, 0 on the tail pad (those lanes re-render the last
-    pixel and must not contribute to a loss)."""
-    tiles = -(-count // TILE_PIXELS)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (tiles * TILE_ROWS, LANES), 0)
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (tiles * TILE_ROWS, LANES), 1)
-    return (rows * LANES + lanes < count).astype(jnp.float32)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 4))
-def render_tiles_pallas_ad(scene, cfg: RenderConfig, interpret: bool = False,
-                           offset=0, count: int | None = None):
-    """Differentiable fused render in the kernel's native tiled layout:
-    returns (3, tiles*TILE_ROWS, LANES) and takes its cotangent in the same
-    shape — no lane-padded (P, 3) arrays or transposes anywhere in the
-    autodiff path.  Same offset/count shard contract as
-    render_pixels_pallas_ad.  Tail-pad lanes (count not a multiple of
-    TILE_PIXELS) re-render the last pixel; the backward masks their
-    cotangent to zero so they never contribute to scene gradients."""
-    if count is None:
-        count = cfg.num_pixels
-    return _forward_tiles(scene, cfg, interpret, offset, count)
-
-
-def _tiles_ad_fwd(scene, cfg, interpret, offset, count):
-    out = render_tiles_pallas_ad(scene, cfg, interpret, offset, count)
-    return out, (scene, offset)
-
-
-def _tiles_ad_bwd(cfg, interpret, count, res, g):
-    scene, offset = res
-    n = cfg.num_pixels if count is None else count
-    if n % TILE_PIXELS:
-        # Tail-pad lanes re-render pixel n-1; an unmasked cotangent there
-        # would count that pixel's scene gradient once per pad lane.  The
-        # packed loss masks them anyway — this makes the API safe for any
-        # caller (e.g. grad of a plain sum over the tiled output).
-        g = g * tile_mask(n)
-    gscene = _grad_pixels_pallas_tbl(scene, cfg, g, interpret=interpret,
-                                     offset=offset, count=count)
-    g_offset = np.zeros(np.shape(offset), jax.dtypes.float0)
-    return (gscene, g_offset)
-
-
-render_tiles_pallas_ad.defvjp(_tiles_ad_fwd, _tiles_ad_bwd)

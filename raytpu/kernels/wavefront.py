@@ -1,25 +1,25 @@
-"""Wavefront Pallas tracer: per-level kernels + sorted ray compaction.
+"""Wavefront tracer: one jnp level body per bounce level + sorted ray
+compaction.
 
-The fused kernel (trace_pallas.py) traces the whole 2^depth bounce tree per
-pixel tile, so every tile pays for its *widest* level even when most of the
-tree is dead — at BASELINE config 5 (256 spheres, 1920x1080, depth 6) only
-~2-5% of deep-level nodes are live, but row-granular liveness stays ~80%
-(BASELINE.md "acceleration-structure study"), so in-kernel skipping cannot
-recover the work.  This module restructures the trace as a *wavefront*
-(the standard GPU megakernel -> wavefront split, rebuilt TPU-first):
+The dense tracers trace the whole 2^depth bounce tree per camera ray, so
+every ray pays for the *widest* level even when most of the tree is dead —
+at BASELINE config 5 (256 spheres, 1920x1080, depth 6) only ~2-5% of
+deep-level nodes are live (BASELINE.md "acceleration-structure study").
+This module restructures the trace as a *wavefront* (the standard GPU
+megakernel -> wavefront split):
 
-  * one Pallas kernel per bounce level, operating on flat SoA ray-state
-    arrays (position/direction/intensity plus a compressed medium INDEX —
-    see N_STATE) tiled (WF_BLOCK_ROWS, 128) rays per grid step;
+  * each bounce level runs the jnp level body (raytpu.trace._trace_level)
+    over flat SoA ray-state arrays (position/direction/intensity plus the
+    medium as a sphere INDEX — see N_STATE); XLA fuses its per-ray
+    reductions over spheres (closest hit, shadow any, container);
   * between levels, an XLA `lax.sort` co-sorts the child state by the key
     (dead << 30) | pixel_id — dead children (whose intensity the level
-    kernel already zeroed *exactly*) sink to the tail, live children are
+    body already zeroed *exactly*) sink to the tail, live children are
     grouped by pixel.  Compaction is therefore EXACT: a dropped ray carries
-    intensity == 0 and could never have contributed (see `_trace_level`:
-    non-spawned, insignificant-reflection, and TIR children are all written
-    as exact zeros).  Sorting-by-pixel additionally restores the spatial
-    coherence the per-tile early-exit cond needs, and makes the emission
-    scatter-add run with sorted indices;
+    intensity == 0 and could never have contributed (non-spawned,
+    insignificant-reflection, and TIR children are all written as exact
+    zeros).  The next level's work is bounded by the capacity, not by
+    2^level;
   * each level's emissions fold into a per-pixel accumulator (the
     reference accumulates into a per-work-item colourSum register,
     raytrace_kernel.cl:944-966; with rays re-ordered across pixels the
@@ -28,33 +28,27 @@ recover the work.  This module restructures the trace as a *wavefront*
     chunk covers chunk/spp distinct pixels: level 0 accumulates with a
     positional reshape-sum (no scatter), and compacted levels pre-reduce
     each pid's run with a segmented scan and scatter ONE element per
-    distinct pixel (`_segsum_scatter` — the round-4 replacement for the
-    live-prefix switch scatter, which an in-frame trace had at 44% of
-    the chunk);
+    distinct pixel (`_segsum_scatter`);
   * the frame is processed in fixed-capacity ray chunks under `lax.scan`,
     so live memory is O(capacity), not O(2^depth x rays).
 
 Per-level ray capacity is static (XLA shapes): `capacity_factor` x chunk.
-By default every spawn level compacts (`eager_sort`), so whole dead kernel
-tiles early-exit even when the children fit capacity; with eager_sort off,
+By default every spawn level compacts (`eager_sort`); with eager_sort off,
 under-capacity levels skip the sort entirely and are bit-identical to an
 unsorted wavefront.  Live rays past capacity are dropped *counted* —
-`render_pixels_wavefront(..., return_info=True)` reports the total, and
-the default factor 2.0 measures zero drops on every BASELINE config (live
-rays per camera ray stay ~<= 1.2 at depth 6 because the intensity cutoff
-kills children faster than the tree doubles).
+`render_pixels_wavefront(..., return_info=True)` reports the total (live
+rays per camera ray stay ~<= 1.2 at depth 6 on the BASELINE scenes
+because the intensity cutoff kills children faster than the tree doubles).
 
-Differentiable (`ad=True`): each level call is a custom-VJP pair — the
-backward is one Pallas kernel per level in the dense backward's style
-(jax.vjp over the level with _VjpScene; scene/light/bg cotangents
-accumulate across the grid) — while XLA autodiff routes cotangents
-through the sort/scatter glue natively.  Small/shallow scenes should
-still train through the fused dense kernels (raytpu.grad).
+Differentiable (`ad=True`): XLA autodiff runs through the level body; the
+permutations (compaction, un-striping) and the segmented scatter carry
+custom VJPs that apply the inverse permutation with one co-sort instead of
+XLA's sort-VJP gathers.
 
 Reference map: the level body is rayTrace's stage machine
-(raytracer.h:410-636) — see trace_pallas._trace_level; the wavefront
+(raytracer.h:410-636) — see raytpu.trace._trace_level; the wavefront
 orchestration itself has no reference analogue (the OpenCL kernel is a
-megakernel), it is the TPU-shaped replacement for per-ray early exit.
+megakernel).
 """
 
 from __future__ import annotations
@@ -65,61 +59,16 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytpu.config import RenderConfig
-from raytpu.kernels.trace_pallas import (
-    LANES,
-    LIGHT_ROWS,
-    SCENE_ROWS,
-    UNROLL_SPHERES,
-    VMEM_LIMIT_BYTES,
-    _S_IOR,
-    _S_MB,
-    _S_MG,
-    _S_MR,
-    _S_OP,
-    _camera_dirs,
-    _gather_cols,
-    _scene_tables,
-    _ScalarTable,
-    _SmemScene,
-    _trace_level,
-    _VjpScene,
-    f32,
-)
+from raytpu.trace import _trace_level, camera_rays
 
-# Rays per grid step = WF_BLOCK_ROWS * 128.  Bigger blocks amortise
-# per-step grid overhead but coarsen the whole-block early-exit
-# granularity; 64 is the measured sweet spot on v5e (1080p d6 N256 frame
-# at the zero-drop 512K x 1.5 setting: 6.07 s at 32 rows, 5.84 s at 64;
-# 128 rows regressed in the ordering sweep; the dead-heavy 320x240 d6
-# config does not regress at 64 — 25.7 ms, was 30 at 32 rows in round 2).
-# VMEM per step is 14 state + 28 child + ~3 emission blocks (~2 MB at 64
-# rows) plus the large-N gather tables.
-# RAYTPU_WF_BLOCK_ROWS overrides for A/B sweeps (tools/wf_frontier.py);
-# the default is the measured optimum.  An active override changes kernel
-# geometry, capacity alignment, and golden/bench reproducibility for the
-# whole process, so it warns loudly — a stray env var must not silently
-# skew a benchmark or golden run (ADVICE r4).
-WF_BLOCK_ROWS = int(os.environ.get("RAYTPU_WF_BLOCK_ROWS", "64"))
-if "RAYTPU_WF_BLOCK_ROWS" in os.environ:
-    import warnings as _warnings
+f32 = jnp.float32
 
-    _warnings.warn(
-        f"RAYTPU_WF_BLOCK_ROWS={WF_BLOCK_ROWS} overrides the wavefront "
-        f"block geometry (default 64 rows) for this whole process — "
-        f"bench/golden numbers will not be reproducible at defaults",
-        RuntimeWarning)
-WF_BLOCK = WF_BLOCK_ROWS * LANES
-
-# Compressed SoA ray state: position(3) + direction(3) + intensity(3) +
-# medium INDEX (f32; -1 = background).  The five medium VALUE fields
-# _trace_level consumes are regathered from the scene table at each level
-# (one one-hot matmul on the MXU) — carrying the index instead of the
-# values cuts the inter-level co-sort from 16 to 12 operands and the
-# state DMA by 4/14.
+# Flat SoA ray state: position(3) + direction(3) + intensity(3) + medium
+# INDEX (f32; -1 = background).  The medium's value fields are gathered
+# from the scene at each level, so the inter-level co-sort moves 11
+# operands (key + 10 fields) instead of 15.
 N_STATE = 10
 
 _DEAD_BIT = np.int32(1 << 30)
@@ -127,8 +76,8 @@ _DEAD_BIT = np.int32(1 << 30)
 # RAYTPU_WF_DEBUG=1 (or flipping this flag before tracing) arms runtime
 # precondition checks on the wavefront glue — currently the
 # _segsum_scatter max-run bound, whose violation is otherwise SILENT
-# emission loss (ADVICE r4).  Checked at trace time, enforced at run time
-# via jax.debug.callback; costs one extra scan over the ids, so it is a
+# emission loss.  Checked at trace time, enforced at run time via
+# jax.debug.callback; costs one extra scan over the ids, so it is a
 # sanitizer mode, not a production default.
 WF_DEBUG = bool(int(os.environ.get("RAYTPU_WF_DEBUG", "0")))
 
@@ -145,291 +94,21 @@ def _align_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _lcm(a: int, b: int) -> int:
-    import math
-    return a * b // math.gcd(a, b)
-
-
-def _make_wf_kernel(n_spheres: int, n_lights: int, spawn: bool):
-    """One bounce level over a (WF_BLOCK_ROWS, 128) ray block: emissions
-    (+ children when `spawn`), with a whole-block liveness early exit
-    (exact — dead blocks would emit and spawn exact zeros anyway)."""
-
-    def kernel(scene_ref, scene_vmem_ref, lights_ref, bg_ref, *refs):
-        state_refs = refs[:N_STATE]
-        out_refs = refs[N_STATE:]
-        bg = dict(matte_r=bg_ref[0, 0], matte_g=bg_ref[1, 0],
-                  matte_b=bg_ref[2, 0], ior=bg_ref[3, 0],
-                  opacity=bg_ref[4, 0])
-        vals_all = scene_vmem_ref[:]
-        vals = (vals_all if n_spheres > UNROLL_SPHERES else None)
-        state = tuple(r[:] for r in state_refs)
-        scn = _SmemScene(scene_ref, n_spheres, vals)
-
-        ir, ig, ib = state[6], state[7], state[8]
-        alive = jnp.max(jnp.maximum(ir, jnp.maximum(ig, ib))) > 0
-
-        # Branch via pl.when writing the output refs directly: a
-        # result-carrying lax.cond here reaches Mosaic as a vector
-        # arith.select it cannot legalize (observed on TPU), while the
-        # ref-writing scf.if form lowers fine (same pattern as the backward
-        # kernel's first-tile accumulator init).  Exact: a dead block would
-        # emit and spawn exact zeros anyway.
-        @pl.when(alive)
-        def _():
-            # Decompress the medium: gather the index's value fields from
-            # the scene table (idx -1 gathers zeros -> background select).
-            mix = state[9]
-            idx = mix.astype(jnp.int32)
-            fields = _gather_cols(vals_all, idx)
-            is_bg = idx < 0
-            sel = lambda row, b: jnp.where(is_bg, b, fields[row])
-            full = state[:9] + (
-                sel(_S_MR, bg["matte_r"]), sel(_S_MG, bg["matte_g"]),
-                sel(_S_MB, bg["matte_b"]), sel(_S_IOR, bg["ior"]),
-                sel(_S_OP, bg["opacity"]))
-            (er, eg, eb), children = _trace_level(
-                scn, lights_ref, n_lights, bg, full, spawn=spawn,
-                medium_idx=mix)
-            outs = (er, eg, eb) + (children if spawn else ())
-            for ref, val in zip(out_refs, outs):
-                ref[:] = val
-
-        @pl.when(jnp.logical_not(alive))
-        def _():
-            for ref in out_refs:
-                ref[:] = jnp.zeros(ref.shape, f32)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "n_spheres", "n_lights", "spawn", "interpret"))
-def _wf_level_call(scene_tbl, lights_tbl, bg_tbl, state, n_spheres: int,
-                   n_lights: int, spawn: bool, interpret: bool):
-    """Run one level kernel over flat (R,) state fields; returns flat
-    ((er, eg, eb), children-or-None).  R must be a multiple of WF_BLOCK."""
-    r = state[0].shape[0]
-    rows = r // LANES
-    tiles = rows // WF_BLOCK_ROWS
-    state2d = tuple(s.reshape(rows, LANES) for s in state)
-
-    blk = lambda nr: pl.BlockSpec((nr, LANES), lambda t: (t, 0),
-                                  memory_space=pltpu.VMEM)
-    in_specs = (
-        [pl.BlockSpec(memory_space=pltpu.SMEM),
-         pl.BlockSpec(memory_space=pltpu.VMEM),
-         pl.BlockSpec(memory_space=pltpu.SMEM),
-         pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [blk(WF_BLOCK_ROWS)] * N_STATE)
-    out_specs = [blk(WF_BLOCK_ROWS)] * 3
-    out_shape = [jax.ShapeDtypeStruct((rows, LANES), jnp.float32)] * 3
-    if spawn:
-        out_specs += [blk(2 * WF_BLOCK_ROWS)] * N_STATE
-        out_shape += [jax.ShapeDtypeStruct((2 * rows, LANES),
-                                           jnp.float32)] * N_STATE
-
-    outs = pl.pallas_call(
-        _make_wf_kernel(n_spheres, n_lights, spawn),
-        grid=(tiles,),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
-        interpret=interpret,
-    )(scene_tbl, scene_tbl, lights_tbl, bg_tbl, *state2d)
-
-    em = tuple(o.reshape(-1) for o in outs[:3])
+def _wf_level(scene, state, spawn: bool):
+    """One bounce level over flat SoA rays: the jnp level body
+    (raytpu.trace._trace_level) on the stacked (R, 3) views.  Returns
+    ((er, eg, eb), children-or-None); children are [refraction rays |
+    reflection rays], 2R each field."""
+    stack = lambda a: jnp.stack(state[a:a + 3], axis=-1)
+    em, ch = _trace_level(scene, stack(0), stack(3), stack(6),
+                          state[9].astype(jnp.int32), spawn)
+    em = tuple(em[:, c] for c in range(3))
     if not spawn:
         return em, None
-    # Child flat layout per tile: [refraction block | reflection block].
-    children = tuple(o.reshape(-1) for o in outs[3:])
+    origin, direction, intensity, medium = ch
+    children = tuple(a[:, k] for a in (origin, direction, intensity)
+                     for k in range(3)) + (medium.astype(f32),)
     return em, children
-
-
-# ---------------------------------------------------------------------------
-# Differentiable wavefront: the custom-VJP boundary sits at the LEVEL call,
-# so XLA autodiff handles all the between-level glue natively (the sort's
-# JVP applies the primal permutation to the cotangents; the emission
-# scatter-add transposes to a gather), and the per-level backward is one
-# Pallas kernel in the dense backward's style: jax.vjp over the level body
-# with _VjpScene (selection loops stay non-differentiable over SMEM, field
-# values flow through one-hot gather matmuls), scene/light/bg cotangents
-# accumulated across the sequential grid.  The medium-index state field is
-# discrete — its cotangent is exactly zero; medium-VALUE gradients flow
-# through each level's decompression gather of the traced value table
-# (the same d_table path the dense backward uses for its gathers).
-
-
-def _make_wf_bwd_kernel(n_spheres: int, n_lights: int, spawn: bool):
-    # Only the 9 differentiable child state fields carry cotangents; the
-    # medium-index field's is provably zero and is not shipped at all.
-    n_ch = 9 if spawn else 0
-
-    def kernel(scene_ref, scene_vmem_ref, lights_ref, bg_ref, *refs):
-        state_refs = refs[:N_STATE]
-        emct_refs = refs[N_STATE:N_STATE + 3]
-        chct_refs = refs[N_STATE + 3:N_STATE + 3 + n_ch]
-        out = refs[N_STATE + 3 + n_ch:]
-        stct_refs = out[:N_STATE]
-        gscene_ref, glights_ref, gbg_ref = out[N_STATE:]
-
-        sv = scene_vmem_ref[:]
-        lv = tuple(tuple(lights_ref[r, l] for l in range(n_lights))
-                   for r in range(LIGHT_ROWS))
-        bgv = tuple(bg_ref[k, 0] for k in range(5))
-        state = tuple(r_[:] for r_ in state_refs)
-        mix = state[9]
-        midx = mix.astype(jnp.int32)
-        is_bg = midx < 0
-
-        first = pl.program_id(0) == 0
-
-        @pl.when(first)
-        def _():
-            gscene_ref[:] = jnp.zeros(gscene_ref.shape, f32)
-            for r in range(LIGHT_ROWS):
-                for l in range(n_lights):
-                    glights_ref[r, l] = f32(0.0)
-            for k in range(5):
-                gbg_ref[k, 0] = f32(0.0)
-
-        ir, ig, ib = state[6], state[7], state[8]
-        alive = jnp.max(jnp.maximum(ir, jnp.maximum(ig, ib))) > 0
-
-        def fn(sv_, lv_, bgv_, st9):
-            # Medium decompression is part of the differentiated level:
-            # its gather routes medium-value cotangents into d(sv_).
-            fields = _gather_cols(sv_, midx)
-            sel = lambda row, b: jnp.where(is_bg, b, fields[row])
-            full = st9 + (sel(_S_MR, bgv_[0]), sel(_S_MG, bgv_[1]),
-                          sel(_S_MB, bgv_[2]), sel(_S_IOR, bgv_[3]),
-                          sel(_S_OP, bgv_[4]))
-            bg = dict(matte_r=bgv_[0], matte_g=bgv_[1], matte_b=bgv_[2],
-                      ior=bgv_[3], opacity=bgv_[4])
-            scn = _VjpScene(scene_ref, sv_, n_spheres)
-            lights = _ScalarTable(lv_)
-            (er, eg, eb), children = _trace_level(
-                scn, lights, n_lights, bg, full, spawn=spawn,
-                medium_idx=mix)
-            # children[9] is the child medium index — discrete, no
-            # cotangent; the 9 differentiable fields are what flow back.
-            return (er, eg, eb), (children[:9] if spawn else ())
-
-        # Mirrors the forward's whole-block early exit exactly: a dead
-        # block produced exact zeros, so every cotangent through it is 0.
-        @pl.when(alive)
-        def _():
-            cot_em = tuple(r_[:] for r_ in emct_refs)
-            cot_ch = tuple(r_[:] for r_ in chct_refs)
-            _, vjp = jax.vjp(fn, sv, lv, bgv, state[:9])
-            d_sv, d_lv, d_bgv, d_st9 = vjp((cot_em, cot_ch))
-            for k in range(9):
-                stct_refs[k][:] = d_st9[k]
-            stct_refs[9][:] = jnp.zeros(stct_refs[9].shape, f32)
-            gscene_ref[:] = gscene_ref[:] + d_sv
-            for r in range(LIGHT_ROWS):
-                for l in range(n_lights):
-                    glights_ref[r, l] = glights_ref[r, l] + d_lv[r][l]
-            for k in range(5):
-                gbg_ref[k, 0] = gbg_ref[k, 0] + d_bgv[k]
-
-        @pl.when(jnp.logical_not(alive))
-        def _():
-            for k in range(N_STATE):
-                stct_refs[k][:] = jnp.zeros(stct_refs[k].shape, f32)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "n_spheres", "n_lights", "spawn", "interpret"))
-def _wf_level_bwd_call(scene_tbl, lights_tbl, bg_tbl, state, em_ct, ch_ct,
-                       n_spheres: int, n_lights: int, spawn: bool,
-                       interpret: bool):
-    """Backward of one level: (d_scene_tbl, d_lights, d_bg, d_state)."""
-    r = state[0].shape[0]
-    rows = r // LANES
-    tiles = rows // WF_BLOCK_ROWS
-    to2d = lambda xs, nr: tuple(x.reshape(nr * tiles, LANES) for x in xs)
-    state2d = to2d(state, WF_BLOCK_ROWS)
-    emct2d = to2d(em_ct, WF_BLOCK_ROWS)
-    # ch_ct[9] (the discrete medium-index field) is identically zero —
-    # the next level's backward writes it as zeros and the sort transpose
-    # only permutes it — so only 9 blocks ride the DMA.
-    chct2d = to2d(ch_ct[:9], 2 * WF_BLOCK_ROWS) if spawn else ()
-
-    blk = lambda nr: pl.BlockSpec((nr, LANES), lambda t: (t, 0),
-                                  memory_space=pltpu.VMEM)
-    in_specs = (
-        [pl.BlockSpec(memory_space=pltpu.SMEM),
-         pl.BlockSpec(memory_space=pltpu.VMEM),
-         pl.BlockSpec(memory_space=pltpu.SMEM),
-         pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [blk(WF_BLOCK_ROWS)] * N_STATE
-        + [blk(WF_BLOCK_ROWS)] * 3
-        + [blk(2 * WF_BLOCK_ROWS)] * (9 if spawn else 0))
-    out_specs = ([blk(WF_BLOCK_ROWS)] * N_STATE
-                 + [pl.BlockSpec(memory_space=pltpu.VMEM),
-                    pl.BlockSpec(memory_space=pltpu.SMEM),
-                    pl.BlockSpec(memory_space=pltpu.SMEM)])
-    out_shape = ([jax.ShapeDtypeStruct((rows, LANES), jnp.float32)] * N_STATE
-                 + [jax.ShapeDtypeStruct((SCENE_ROWS, n_spheres),
-                                         jnp.float32),
-                    jax.ShapeDtypeStruct((LIGHT_ROWS, n_lights),
-                                         jnp.float32),
-                    jax.ShapeDtypeStruct((5, 1), jnp.float32)])
-
-    outs = pl.pallas_call(
-        _make_wf_bwd_kernel(n_spheres, n_lights, spawn),
-        grid=(tiles,),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
-        interpret=interpret,
-    )(scene_tbl, scene_tbl, lights_tbl, bg_tbl,
-      *state2d, *emct2d, *chct2d)
-
-    d_state = tuple(o.reshape(-1) for o in outs[:N_STATE])
-    d_scene, d_lights, d_bg = outs[N_STATE:]
-    return d_scene, d_lights, d_bg, d_state
-
-
-@functools.lru_cache(maxsize=None)
-def _wf_level_ad(n_spheres: int, n_lights: int, spawn: bool,
-                 interpret: bool):
-    """custom_vjp-wrapped level call for the differentiable wavefront."""
-
-    @jax.custom_vjp
-    def level(scene_tbl, lights_tbl, bg_tbl, state):
-        em, ch = _wf_level_call(scene_tbl, lights_tbl, bg_tbl, state,
-                                n_spheres, n_lights, spawn, interpret)
-        return em, (ch if spawn else ())
-
-    def fwd(scene_tbl, lights_tbl, bg_tbl, state):
-        out = level(scene_tbl, lights_tbl, bg_tbl, state)
-        return out, (scene_tbl, lights_tbl, bg_tbl, state)
-
-    def bwd(res, cts):
-        scene_tbl, lights_tbl, bg_tbl, state = res
-        em_ct, ch_ct = cts
-        d_scene, d_lights, d_bg, d_state = _wf_level_bwd_call(
-            scene_tbl, lights_tbl, bg_tbl, state, em_ct, ch_ct,
-            n_spheres, n_lights, spawn, interpret)
-        return d_scene, d_lights, d_bg, d_state
-
-    level.defvjp(fwd, bwd)
-    return level
-
-
-def _dup_tilewise(pid, tiles):
-    """Map per-ray metadata onto the children's per-tile
-    [refraction | reflection] layout."""
-    p = pid.reshape(tiles, WF_BLOCK)
-    return jnp.concatenate([p, p], axis=1).reshape(-1)
 
 
 def _compact(children, pid, cap: int):
@@ -437,22 +116,10 @@ def _compact(children, pid, cap: int):
 
     Dead rays (intensity exactly zero — see module docstring for why that
     mask is exact) sink to the tail; live rays group by pixel, keeping the
-    scatter indices sorted and live tiles spatially coherent.  Returns
-    (state, pid, n_dropped_live).
+    scatter indices sorted.  Returns (state, pid, n_dropped_live, n_kept).
 
-    The permutation moves every field through the sort network itself
-    (an 11-operand co-sort: key + the 10 compressed state fields — the
-    original 16-operand form measured ~46 ms per 4M rays on v5e, and the
-    two state-compression passes cut ~16% off that).  That is the
-    TPU-shaped permute: every payload rides the sort's vector ops in
-    lockstep, all operands stay 1-D (lane-dense).  The tempting
-    alternative — sort (key, iota) cheaply, then apply the permutation
-    with one wide (rays, 16) AoS row gather — is a trap: TPU pads a
-    2-D f32 array's minor dim to 128 lanes, so the (4M, 15) AoS
-    materializes 2.1 GB and the full pipeline OOM-crashes the chip
-    (per-field 1-D takes avoid the padding but run at ~0.6 GB/s, worse
-    than the co-sort).  Measured in tools/glue_bench.py /
-    tools/probe_glue_crash.py."""
+    The permutation moves every field through the sort itself (an
+    11-operand co-sort: key + the 10 state fields), all operands 1-D."""
     ir, ig, ib = children[6], children[7], children[8]
     alive = (ir != 0) | (ig != 0) | (ib != 0)
     key = jnp.where(alive, jnp.int32(0), _DEAD_BIT) | pid
@@ -473,256 +140,12 @@ def _compact(children, pid, cap: int):
     return state, new_pid, dropped, n_kept
 
 
-def _make_cursor_copy_kernel(n_ops: int, bs_rows: int):
-    """Sequential-grid copy: block t of each operand lands at row
-    starts[t] of the full output (revisited VMEM block), when ok[t].
-    Writing the FULL static-size block at a dynamic start and letting the
-    next block overwrite the previous one's dead tail is what makes the
-    copy static-shaped (Mosaic needs static slice sizes; the pattern is
-    probed exact on v5e incl. unaligned starts)."""
-
-    def kernel(starts_ref, ok_ref, *refs):
-        in_refs = refs[:n_ops]
-        out_refs = refs[n_ops:]
-        t = pl.program_id(0)
-
-        @pl.when(t == 0)
-        def _():
-            # Dead init: key = DEAD_BIT (treated dead downstream), state 0.
-            out_refs[0][:] = jnp.full(out_refs[0].shape, _DEAD_BIT,
-                                      jnp.int32)
-            for o in out_refs[1:]:
-                o[:] = jnp.zeros(o.shape, f32)
-
-        @pl.when(ok_ref[t] > 0)
-        def _():
-            s = starts_ref[t]
-            for i, o in zip(in_refs, out_refs):
-                o[pl.ds(s, bs_rows), :] = i[:]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("cap_rows", "bs_rows",
-                                             "interpret"))
-def _cursor_copy_call(starts, ok, ops, cap_rows: int, bs_rows: int,
-                      interpret: bool):
-    """ops: tuple of (T*bs_rows, LANES) arrays (key int32 first); returns
-    (cap_rows + bs_rows, LANES) outputs with blocks placed at starts."""
-    n_ops = len(ops)
-    t_blocks = ops[0].shape[0] // bs_rows
-    blk = pl.BlockSpec((bs_rows, LANES), lambda t: (t, 0),
-                       memory_space=pltpu.VMEM)
-    full = pl.BlockSpec((cap_rows + bs_rows, LANES), lambda t: (0, 0),
-                        memory_space=pltpu.VMEM)
-    out_shape = ([jax.ShapeDtypeStruct((cap_rows + bs_rows, LANES),
-                                       jnp.int32)]
-                 + [jax.ShapeDtypeStruct((cap_rows + bs_rows, LANES),
-                                         jnp.float32)] * (n_ops - 1))
-    return pl.pallas_call(
-        _make_cursor_copy_kernel(n_ops, bs_rows),
-        grid=(t_blocks,),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=([pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
-                  + [blk] * n_ops),
-        out_specs=tuple([full] * n_ops),
-        out_shape=tuple(out_shape),
-        interpret=interpret,
-    )(starts, ok, *ops)
-
-
-def _compact_blocked(children, pid, cap: int, interpret: bool = False):
-    """Block-local replacement for _compact (ROADMAP #2 / VERDICT r4
-    next-step 5): sort each tile's children independently (a BATCHED
-    (T, 2*WF_BLOCK) co-sort — log^2 passes scale with the block, not the
-    global length) and concatenate the live prefixes with the cursor-copy
-    kernel.  Parents are pid-sorted and a tile's children inherit its pid
-    range, so block-local ordering + block-order concatenation keeps the
-    global kept sequence pid-sorted — except for <= LANES dead filler
-    rays at each block seam (the copy commits whole 128-lane rows).
-    Fillers carry exact-zero state, so they are EXACT for rendering; they
-    split at most one pid run per seam and add one zero-valued boundary
-    each, which the caller absorbs by widening the _segsum_scatter prefix
-    by 2*T_blocks (run splits sum to the same pixel; dead boundaries
-    scatter zeros at the clamped index).  Capacity is enforced at row
-    granularity from the block-start prefix sums: whole blocks whose
-    start exceeds the capacity are skipped (drop from the pid tail, like
-    the global sort), and live rays past the slice are counted — drop
-    accounting is exact.  Forward-only (the AD path keeps _compact_ad's
-    global co-sort: its backward needs the global inverse permutation
-    anyway)."""
-    r2 = children[0].shape[0]
-    rows = r2 // LANES
-    bs_rows = 2 * WF_BLOCK_ROWS          # one tile's [refr | refl] children
-    if rows % bs_rows or rows // bs_rows <= 1 or cap % LANES:
-        return _compact(children, pid, cap)
-    t_blocks = rows // bs_rows
-    bs = bs_rows * LANES
-    ir, ig, ib = children[6], children[7], children[8]
-    alive = (ir != 0) | (ig != 0) | (ib != 0)
-    key = jnp.where(alive, jnp.int32(0), _DEAD_BIT) | pid
-    batched = tuple(o.reshape(t_blocks, bs) for o in (key,) + children)
-    srt = jax.lax.sort(batched, num_keys=1, is_stable=False)  # per block
-    live_t = jnp.sum((srt[0] < _DEAD_BIT).astype(jnp.int32), axis=1)
-    live_rows = -(-live_t // LANES)                       # ceil, rows
-    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                              jnp.cumsum(live_rows)[:-1]])
-    cap_rows = cap // LANES
-    ok = (starts <= jnp.int32(cap_rows)).astype(jnp.int32)
-    starts = jnp.minimum(starts, jnp.int32(cap_rows))     # bounds safety
-    ops2d = tuple(o.reshape(t_blocks * bs_rows, LANES) for o in srt)
-    outs = _cursor_copy_call(starts, ok, ops2d, cap_rows, bs_rows,
-                             interpret)
-    key_out = outs[0].reshape(-1)[:cap]
-    state = tuple(o.reshape(-1)[:cap] for o in outs[1:])
-    kept_alive = key_out < _DEAD_BIT
-    new_pid = jnp.where(kept_alive, key_out & jnp.int32(0x3FFFFFFF),
-                        jnp.int32(0x3FFFFFFF))
-    total_live = jnp.sum(live_t)
-    kept_live = jnp.sum(jnp.where(
-        ok > 0,
-        jnp.minimum(live_t,
-                    jnp.maximum(jnp.int32(cap_rows) - starts, 0) * LANES),
-        0))
-    return state, new_pid, total_live - kept_live, kept_live
-
-
-def _make_inverse_cursor_kernel(n_ops: int, bs_rows: int):
-    """Transpose of the cursor copy: block t reads the full cotangent
-    array at its own dynamic start and keeps only its COMMITTED rows
-    (rows >= live_rows[t] in the window belong to the next block's
-    overwrite, rows of skipped blocks to nobody — both zeroed)."""
-
-    def kernel(starts_ref, ok_ref, liverows_ref, *refs):
-        in_refs = refs[:n_ops]
-        out_refs = refs[n_ops:]
-        t = pl.program_id(0)
-        s = starts_ref[t]
-        lr = liverows_ref[t]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (bs_rows, LANES), 0)
-        committed = (rows < lr) & (ok_ref[t] > 0)
-        for i, o in zip(in_refs, out_refs):
-            o[:] = jnp.where(committed, i[pl.ds(s, bs_rows), :], f32(0.0))
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("bs_rows", "interpret"))
-def _inverse_cursor_call(starts, ok, live_rows, cots, bs_rows: int,
-                         interpret: bool):
-    """cots: tuple of (cap_rows + bs_rows, LANES) cotangent arrays ->
-    (T * bs_rows, LANES) per-block sorted-position cotangents."""
-    n_ops = len(cots)
-    t_blocks = starts.shape[0]
-    full = pl.BlockSpec(cots[0].shape, lambda t: (0, 0),
-                        memory_space=pltpu.VMEM)
-    blk = pl.BlockSpec((bs_rows, LANES), lambda t: (t, 0),
-                       memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_inverse_cursor_kernel(n_ops, bs_rows),
-        grid=(t_blocks,),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        in_specs=([pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-                  + [full] * n_ops),
-        out_specs=tuple([blk] * n_ops),
-        out_shape=tuple([jax.ShapeDtypeStruct((t_blocks * bs_rows, LANES),
-                                              jnp.float32)] * n_ops),
-        interpret=interpret,
-    )(starts, ok, live_rows, *cots)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def _compact_blocked_ad(children, pid, cap: int, interpret: bool):
-    """_compact_blocked with a custom VJP (round 5): the forward's
-    permutation is (per-block sort, cursor placement); the backward
-    applies its inverse as (inverse cursor read, batched per-block
-    co-sort by the saved local permutation) — never XLA's sort-VJP
-    (the _compact_ad lesson: its per-field gathers run ~0.6 GB/s).
-    Semantics match _compact_ad's: kept cotangents travel back to the
-    original child positions; dropped/overwritten children get exact
-    zeros (their primal contribution was zero or sliced away)."""
-    return _compact_blocked(children, pid, cap, interpret)
-
-
-def _compact_blocked_ad_fwd(children, pid, cap: int, interpret: bool):
-    r2 = children[0].shape[0]
-    rows = r2 // LANES
-    bs_rows = 2 * WF_BLOCK_ROWS
-    if rows % bs_rows or rows // bs_rows <= 1 or cap % LANES:
-        out, res = _compact_ad_fwd(children, pid, cap)
-        return out, (None, res)
-    t_blocks = rows // bs_rows
-    bs = bs_rows * LANES
-    ir, ig, ib = children[6], children[7], children[8]
-    alive = (ir != 0) | (ig != 0) | (ib != 0)
-    key = jnp.where(alive, jnp.int32(0), _DEAD_BIT) | pid
-    iota = jax.lax.broadcasted_iota(jnp.int32, (t_blocks, bs), 1)
-    batched = tuple(o.reshape(t_blocks, bs) for o in (key,) + children)
-    srt = jax.lax.sort(batched + (iota,), num_keys=1, is_stable=False)
-    perm = srt[-1]                       # sorted pos -> block-local index
-    live_t = jnp.sum((srt[0] < _DEAD_BIT).astype(jnp.int32), axis=1)
-    live_rows = -(-live_t // LANES)
-    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                              jnp.cumsum(live_rows)[:-1]])
-    cap_rows = cap // LANES
-    ok = (starts <= jnp.int32(cap_rows)).astype(jnp.int32)
-    starts = jnp.minimum(starts, jnp.int32(cap_rows))
-    ops2d = tuple(o.reshape(t_blocks * bs_rows, LANES) for o in srt[:-1])
-    outs = _cursor_copy_call(starts, ok, ops2d, cap_rows, bs_rows,
-                             interpret)
-    key_out = outs[0].reshape(-1)[:cap]
-    state = tuple(o.reshape(-1)[:cap] for o in outs[1:])
-    kept_alive = key_out < _DEAD_BIT
-    new_pid = jnp.where(kept_alive, key_out & jnp.int32(0x3FFFFFFF),
-                        jnp.int32(0x3FFFFFFF))
-    total_live = jnp.sum(live_t)
-    kept_live = jnp.sum(jnp.where(
-        ok > 0,
-        jnp.minimum(live_t,
-                    jnp.maximum(jnp.int32(cap_rows) - starts, 0) * LANES),
-        0))
-    out = (state, new_pid, total_live - kept_live, kept_live)
-    return out, ((perm, starts, ok, live_rows, bs_rows), None)
-
-
-def _compact_blocked_ad_bwd(cap: int, interpret: bool, res, cts):
-    blocked_res, global_res = res
-    if blocked_res is None:
-        return _compact_ad_bwd(cap, global_res, cts)
-    perm, starts, ok, live_rows, bs_rows = blocked_res
-    d_state = cts[0]                     # 10 float arrays, length cap
-    t_blocks, bs = perm.shape
-    cap_rows = cap // LANES
-    pad_rows = cap_rows + bs_rows
-    padded = tuple(
-        jnp.concatenate([d, jnp.zeros((pad_rows * LANES - cap,), d.dtype)])
-        .reshape(pad_rows, LANES) for d in d_state)
-    # Committed rows back to per-block sorted positions...
-    cots = _inverse_cursor_call(starts, ok, live_rows, padded, bs_rows,
-                                interpret)
-    # ...then each block's inverse sort: co-sort by the forward's local
-    # permutation (distinct within a block, so the unstable batched sort
-    # is the exact inverse).
-    cots2d = tuple(c.reshape(t_blocks, bs) for c in cots)
-    inv = jax.lax.sort((perm,) + cots2d, num_keys=1, is_stable=False)
-    d_children = tuple(o.reshape(-1) for o in inv[1:])
-    d_pid = np.zeros((t_blocks * bs,), jax.dtypes.float0)
-    return d_children, d_pid
-
-
-_compact_blocked_ad.defvjp(_compact_blocked_ad_fwd, _compact_blocked_ad_bwd)
-
-
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def _compact_ad(children, pid, cap: int):
     """_compact for the differentiable wavefront: same primal, but the
     backward applies the INVERSE permutation with one co-sort instead of
-    XLA's sort-VJP (which lowers to per-field 1-D gathers at ~0.6 GB/s —
-    measured ~10x the whole forward frame at 1080p d4; the co-sort is the
-    TPU-shaped permute, same as the forward's).  Semantics: the kept
-    prefix's cotangents travel back to the children's original positions;
+    XLA's sort-VJP (per-field gathers).  Semantics: the kept prefix's
+    cotangents travel back to the children's original positions;
     dropped/dead-tail children get exact zeros (their primal contribution
     was zero by the compaction-exactness lemma)."""
     return _compact(children, pid, cap)
@@ -775,20 +198,12 @@ _SCATTER_SEGS = 8
 
 def _scatter_emissions(acc, em, pid, npix: int, sorted_ids: bool,
                        n_live=None):
-    """acc[c][pid] += em[c], three 1-D scatter-adds ((npix, 3) would pad
-    its minor dim to 128 lanes — a 1 GB accumulator at 2M pixels).
+    """acc[c][pid] += em[c], three 1-D scatter-adds.
 
-    The scatter-add runs ~3 ns/element on v5e regardless of value,
-    uniqueness, or sortedness (tools/scatter_bench.py) — per-element
-    serial, the priciest glue op — so the only lever is scattering FEWER
-    elements.  With `n_live` (compacted levels: _compact sinks dead rays
-    to the tail and counts the kept live prefix), a lax.switch picks the
-    smallest static prefix >= n_live out of _SCATTER_SEGS granularities
-    and scatters only that — at deep levels most of the range is dead, so
-    most of the scatter is skipped.  The earlier 4-segment cond-guarded
-    form measured ~3x the plain scatter on all-live data (27.6 vs
-    9.1 ms/1M rays — per-segment cond dispatch breaks the fusion);
-    the switch form pays one branch dispatch total.
+    With `n_live` (compacted levels: _compact sinks dead rays to the tail
+    and counts the kept live prefix), a lax.switch picks the smallest
+    static prefix >= n_live out of _SCATTER_SEGS granularities and
+    scatters only that.
 
     The skip is gated on ray LIVENESS, not on emissions being zero: a
     live ray can emit exact zeros (black matte) while its emission still
@@ -797,17 +212,7 @@ def _scatter_emissions(acc, em, pid, npix: int, sorted_ids: bool,
     exactness lemma, is identically zero as a function — every partial is
     where-blocked or intensity-scaled — so the dropped dead tail is
     gradient-exact as well (its cotangent path vanishes with the primal:
-    lax.switch routes the unselected branches' cotangents as zeros).
-
-    END-TO-END A/B, round 3: a device-profiler trace showed these
-    switches at 10-13 ms each in-frame and the solo-benched plain scatter
-    at ~6 ms, suggesting plain would win — but replacing the switch with
-    plain full-range scatters measured the 1080p d6 frame at 7.71 s vs
-    5.78 s with the switch.  In-frame, the plain scatter costs ~3x its
-    solo-bench figure (composition effect — see tools/chunk_profile.py's
-    docstring), and the dead-prefix skip is a real win.  Moral recorded
-    in CLAUDE.md: solo-benched op costs do not transfer into composed
-    programs; only same-build end-to-end A/Bs decide."""
+    lax.switch routes the unselected branches' cotangents as zeros)."""
     safe = jnp.minimum(pid, jnp.int32(npix - 1))
     r = safe.shape[0]
 
@@ -832,14 +237,12 @@ def _scatter_emissions(acc, em, pid, npix: int, sorted_ids: bool,
 
 
 def _scatter_window(acc, em, start, npix: int):
-    """Level-0 emission accumulation: camera-chunk ray i maps to pixel
-    (start + i) % npix — contiguous mod npix — so the 'scatter' is a
-    dynamic_update_slice into a zero extension plus a wrap fold, all
-    dense vector adds (measured free vs ~9 ms/1M-ray scatter,
-    tools/scatter_bench.py).  Exact for the tail-clamped rays too: their
-    ids were clamped to total-1 but their intensity (hence emission) is
-    exactly zero, so placing those zeros at the unclamped positions
-    changes nothing."""
+    """Emission accumulation for rays i mapping to pixel (start + i) %
+    npix — contiguous mod npix — as a dynamic_update_slice into a zero
+    extension plus a wrap fold, all dense vector adds.  Exact for
+    tail-clamped rays too: their intensity (hence emission) is exactly
+    zero, so placing those zeros at the unclamped positions changes
+    nothing."""
     chunk = em[0].shape[0]
     s0 = jnp.remainder(jnp.asarray(start, jnp.int32), jnp.int32(npix))
     wraps = chunk // npix + 2
@@ -851,23 +254,15 @@ def _scatter_window(acc, em, start, npix: int):
     return tuple(outs)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7))
-def _segsum_scatter(acc, em, pid, npix: int, prefix: int,
-                    max_run: int = 0, blocked: bool = False,
-                    interpret: bool = False):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
+def _segsum_scatter(acc, em, pid, npix: int, prefix: int, max_run: int = 0):
     """acc[c][pid] += em[c] for PID-SORTED rays, via exact segmented
     pre-reduction: one level's rays cover at most `prefix` distinct pixels
     (pixel-major chunks: chunk // samples_per_pixel), so summing each
     pid-run first and scattering ONE element per run cuts the scattered
-    element count ~spp x live-fraction-fold.  The scatter-add costs
-    ~3 ns per ELEMENT regardless of values (tools/scatter_bench.py), so
-    this is the only remaining lever; measured 1.33 ms vs 13.5 ms for the
-    full-range scatter at cap 1.5M/58K-unique solo (tools/segsum_bench.py),
-    and it replaced the round-3 live-prefix lax.switch form, which the
-    round-4 in-frame trace attributed 44% of the chunk to
-    (tools/chunk_profile.py).
+    element count ~spp x live-fraction-fold.
 
-    Stages (all lane-dense 1-D ops):
+    Stages (all 1-D ops):
       1. log2(r) roll/compare/add steps: run-inclusive sums (the run's
          LAST element holds the run total);
       2. boundary mask pid[i] != pid[i+1]; non-boundaries and the dead
@@ -883,21 +278,18 @@ def _segsum_scatter(acc, em, pid, npix: int, prefix: int,
     unspecified anyway, and every wavefront contract is tolerance-based).
 
     Backward: the map em -> acc is linear with transpose d_em[i] =
-    d_acc[pid[i]].  Since round 5 that gather is NOT materialized
-    full-length (an AD-chunk trace put the r-length per-field gather at
-    ~4.8 ms/level — the known ~0.6 GB/s 1-D gather wall): the forward
-    saves the <= prefix boundary (key, original position) pairs, and the
-    backward gathers d_acc at just those, scatters the values onto the
-    run-LAST positions, and BACKFILLS each run with the same bounded
-    doubling scan the forward uses (see _segsum_scatter_bwd).  Declared
-    via custom_vjp so autodiff never differentiates through the sort
-    (XLA's sort-VJP: the round-3 _compact_ad lesson).
+    d_acc[pid[i]].  The forward saves the <= prefix boundary (key,
+    original position) pairs, and the backward gathers d_acc at just
+    those, scatters the values onto the run-LAST positions, and BACKFILLS
+    each run with the same bounded doubling scan the forward uses (see
+    _segsum_scatter_bwd).  Declared via custom_vjp so autodiff never
+    differentiates through the sort.
 
     HARD PRECONDITIONS (callers MUST guarantee; violations are silent):
       * pid is sorted ascending with the dead tail at 0x3FFFFFFF, and no
         live run is longer than `max_run` — longer runs are silently
         under-reduced (emission mass lost).  The wavefront's pixel-major
-        descent guarantees spp * 2^level; interpret mode asserts it.
+        descent guarantees spp * 2^level; WF_DEBUG asserts it.
       * dead-tail rays (pid >= npix) must carry emissions that are
         IDENTICALLY-ZERO FUNCTIONS of the scene (not merely zero values):
         the backward's npix-1 clamp hands them d_acc[npix-1] as
@@ -906,18 +298,15 @@ def _segsum_scatter(acc, em, pid, npix: int, prefix: int,
         exactness lemma).  A caller without that invariant gets silently
         wrong gradients for the tail rays."""
     return _segsum_scatter_impl(acc, em, pid, npix, prefix, max_run,
-                                blocked, interpret, need_res=False)[0]
+                                need_res=False)[0]
 
 
 def _segsum_scatter_impl(acc, em, pid, npix: int, prefix: int,
-                         max_run: int, blocked: bool, interpret: bool,
-                         need_res: bool = True):
+                         max_run: int, need_res: bool = True):
     """Shared primal: returns (updated acc, (bkey, bpos)) where
     bkey/bpos are the compacted boundary keys and their ORIGINAL
     positions (prefix-length) — the backward's seed set (see
-    _segsum_scatter_bwd: gathering d_acc at the <= prefix boundaries and
-    backfilling runs replaces the r-length per-field gather that an AD
-    chunk trace attributed ~4.8 ms/level to)."""
+    _segsum_scatter_bwd)."""
     r = pid.shape[0]
     bound = min(max_run, r) if max_run > 0 else r
     steps = max(1, (bound - 1).bit_length())
@@ -938,46 +327,8 @@ def _segsum_scatter_impl(acc, em, pid, npix: int, prefix: int,
     key = jnp.where(last, pid, jnp.int32(1) << 30)
     bs = tuple(jnp.where(last, x, f32(0.0)) for x in e)
     # Positions ride the boundary compaction as f32 (exact: r < 2^24) —
-    # only when the caller is the AD fwd (the primal-only path skips the
-    # extra sorted operand + cursor output: measured ~0.6% of the
-    # config-5 frame).
+    # only when the caller is the AD fwd.
     pos = (idx.astype(f32),) if need_res else ()
-    rows = r // LANES
-    if blocked and rows % WF_BLOCK_ROWS == 0 and rows // WF_BLOCK_ROWS > 1:
-        # Blocked boundary compaction (round 5, same scheme as
-        # _compact_blocked): sort 8192-element blocks batched and
-        # concatenate their boundary prefixes with the cursor-copy
-        # kernel.  Boundaries stay globally key-ascending across blocks
-        # (pid-sorted input); fillers are exact zeros with dead keys
-        # (clamped to npix-1, adding zero) — so the scatter result is
-        # identical up to reassociation.  Never drops: the output holds
-        # prefix + one row per block, an upper bound on boundaries +
-        # fillers.  indices_are_sorted=False: interior fillers clamp to
-        # npix-1, breaking the ascending property the global sort had.
-        bse = WF_BLOCK_ROWS * LANES
-        tb = r // bse
-        srt = jax.lax.sort(
-            (key.reshape(tb, bse),)
-            + tuple(x.reshape(tb, bse) for x in bs + pos),
-            num_keys=1, is_stable=False)
-        nb = jnp.sum((srt[0] < (jnp.int32(1) << 30)).astype(jnp.int32),
-                     axis=1)
-        live_rows = -(-nb // LANES)
-        starts = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                                  jnp.cumsum(live_rows)[:-1]])
-        out_rows = -(-prefix // LANES) + tb
-        ops2d = tuple(o.reshape(tb * WF_BLOCK_ROWS, LANES) for o in srt)
-        outs = _cursor_copy_call(starts, jnp.ones((tb,), jnp.int32),
-                                 ops2d, out_rows, WF_BLOCK_ROWS,
-                                 interpret)
-        p2 = out_rows * LANES
-        bkey = outs[0].reshape(-1)[:p2]
-        kp = jnp.minimum(bkey, jnp.int32(npix - 1))
-        vops = outs[1:-1] if need_res else outs[1:]
-        res = ((bkey, outs[-1].reshape(-1)[:p2].astype(jnp.int32))
-               if need_res else None)
-        return (tuple(a.at[kp].add(x.reshape(-1)[:p2])
-                      for a, x in zip(acc, vops)), res)
     srt = jax.lax.sort((key,) + bs + pos, num_keys=1, is_stable=False)
     bkey = srt[0][:prefix]
     kp = jnp.minimum(bkey, jnp.int32(npix - 1))
@@ -989,26 +340,23 @@ def _segsum_scatter_impl(acc, em, pid, npix: int, prefix: int,
 
 
 def _segsum_scatter_fwd(acc, em, pid, npix: int, prefix: int,
-                        max_run: int = 0, blocked: bool = False,
-                        interpret: bool = False):
+                        max_run: int = 0):
     out, (bkey, bpos) = _segsum_scatter_impl(acc, em, pid, npix, prefix,
-                                             max_run, blocked, interpret)
+                                             max_run)
     return out, (pid, bkey, bpos)
 
 
-def _segsum_scatter_bwd(npix: int, prefix: int, max_run: int,
-                        blocked: bool, interpret: bool, res, d_acc):
-    """Transpose d_em[i] = d_acc[pid[i]] WITHOUT the r-length per-field
-    gather (~0.6 GB/s on TPU — an AD-chunk trace put it at ~4.8 ms/level):
-    d_em is piecewise-constant over pid runs, so gather d_acc at just the
-    <= prefix saved boundaries, scatter the values onto the run-LAST
-    positions, and backfill each run right-to-left with the same bounded
-    doubling scan the forward uses.  Entries whose run was never seeded
-    cannot exist under the sortedness precondition (every run's last is a
-    boundary in the prefix); filler/non-boundary prefix slots carry dead
-    keys (>= 2^30) and are dropped.  Dead-run boundaries (pid
-    0x3FFFFFFF) seed d_acc[npix-1] exactly as the old clamped gather did
-    — covered by the identically-zero-emissions precondition."""
+def _segsum_scatter_bwd(npix: int, prefix: int, max_run: int, res, d_acc):
+    """Transpose d_em[i] = d_acc[pid[i]] without an r-length per-field
+    gather: d_em is piecewise-constant over pid runs, so gather d_acc at
+    just the <= prefix saved boundaries, scatter the values onto the
+    run-LAST positions, and backfill each run right-to-left with the same
+    bounded doubling scan the forward uses.  Entries whose run was never
+    seeded cannot exist under the sortedness precondition (every run's
+    last is a boundary in the prefix); non-boundary prefix slots carry
+    dead keys (>= 2^30) and are dropped.  Dead-run boundaries (pid
+    0x3FFFFFFF) seed d_acc[npix-1] — covered by the
+    identically-zero-emissions precondition."""
     pid, bkey, bpos = res
     r = pid.shape[0]
     ok = bkey < (jnp.int32(1) << 30)
@@ -1040,18 +388,16 @@ def _unstripe(acc, ws: int, stride: int, npix: int):
 
     Chunks take STRIDED pixel sets (chunk c owns pixels {c + k*stride}),
     so every chunk sees frame-average liveness instead of a hot
-    horizontal strip — the measured reason pixel-major contiguous chunks
-    needed capacity 2.0 where striding runs 1.5 drop-free (BASELINE.md
-    round-4 study).  Accumulation happens in chunk-contiguous SLOT space
-    (slot = c*ws + k, what level 0's reshape-sum and the segsum scatter
-    naturally produce); this one 4-operand co-sort maps slots to pixels
-    (pixel of slot = c + k*stride — all distinct, so the unstable sort
-    is the exact permutation), and pad slots (pixel >= npix, always
-    zero) sort to the sliced-off tail.
+    horizontal strip (BASELINE.md round-4 study: contiguous chunks needed
+    capacity 2.0 where striding runs 1.5 drop-free).  Accumulation happens
+    in chunk-contiguous SLOT space (slot = c*ws + k, what level 0's
+    reshape-sum and the segsum scatter naturally produce); this one
+    4-operand co-sort maps slots to pixels (pixel of slot = c + k*stride —
+    all distinct, so the unstable sort is the exact permutation), and pad
+    slots (pixel >= npix, always zero) sort to the sliced-off tail.
 
     Backward: the permutation's transpose is the inverse permutation —
-    one more co-sort keyed by the forward's destination, never XLA's
-    sort-VJP gathers (the _compact_ad lesson)."""
+    one more co-sort keyed by the forward's destination."""
     nslots = ws * stride
     slot = jnp.arange(nslots, dtype=jnp.int32)
     p = slot // ws + (slot % ws) * stride
@@ -1081,23 +427,17 @@ _unstripe.defvjp(_unstripe_fwd, _unstripe_bwd)
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "cfg", "chunk_rays", "capacity_factor", "eager_sort", "interpret",
-    "count", "ad", "streams", "shard_stride", "compact_mode"))
+    "cfg", "chunk_rays", "capacity_factor", "eager_sort", "count", "ad",
+    "shard_stride"))
 def _render_wavefront_impl(scene, cfg: RenderConfig, chunk_rays: int,
-                           capacity_factor: int, eager_sort: bool,
-                           interpret: bool, offset=0, count=None,
-                           ad: bool = False, streams: int = 1,
-                           shard_stride: int = 1,
-                           compact_mode: str = "global"):
-    n_spheres = scene.spheres.pos.shape[0]
-    n_lights = scene.lights.pos.shape[0]
-    scene_tbl, lights_tbl, bg_tbl = _scene_tables(scene)
-
+                           capacity_factor: float, eager_sort: bool,
+                           offset=0, count=None, ad: bool = False,
+                           shard_stride: int = 1):
     # Pixel window [offset, offset + npix): the full frame by default, or
-    # one device's contiguous pixel shard (offset may be traced — it is
-    # the shard's first global pixel id inside shard_map).  All sorting
-    # and accumulation run on window-local pixel ids; only the camera
-    # needs the global id.
+    # one device's pixel shard (offset may be traced — it is the shard's
+    # first global pixel id inside shard_map).  All sorting and
+    # accumulation run on window-local pixel ids; only the camera needs
+    # the global id.
     npix = cfg.num_pixels if count is None else count
     if npix >= int(_DEAD_BIT):
         raise ValueError("wavefront sort key packs pixel ids into 30 bits")
@@ -1109,87 +449,62 @@ def _render_wavefront_impl(scene, cfg: RenderConfig, chunk_rays: int,
     # level's distinct-accumulator-id count by ws = chunk/spp (the
     # _segsum_scatter prefix), makes level 0's accumulation a plain
     # reshape-sum, and keeps the spp near-identical AA rays together.
-    # The STRIDE gives every chunk frame-average liveness: contiguous
-    # pixel-major chunks are ~30-row horizontal strips whose hot spots
-    # needed capacity 2.0 to run drop-free where striding runs 1.5
-    # (round-4 frontier probes, BASELINE.md).  Accumulation runs on
-    # chunk-contiguous SLOT ids (slot = id // spp); _unstripe maps slots
-    # to pixels once at the end.  (The round-1..3 sample-major order —
-    # pid = ids % npix — spread a pixel's samples across chunks: every
-    # pid in a chunk was distinct and the per-level emission scatter had
-    # nothing to pre-reduce; the round-4 in-frame trace put that scatter
-    # at 44% of the chunk.)  Chunks align to lcm(WF_BLOCK, spp) so the
-    # reshape and the kernel grid both divide.
-    chunk = _align_up(min(chunk_rays, total), _lcm(WF_BLOCK, spp))
+    # The STRIDE gives every chunk frame-average liveness (see _unstripe).
+    # Accumulation runs on chunk-contiguous SLOT ids (slot = id // spp);
+    # _unstripe maps slots to pixels once at the end.  Chunks align to
+    # spp so the (ws, spp) reshape divides.
+    chunk = _align_up(min(chunk_rays, total), spp)
     ws = chunk // spp
     # int() so a float factor (e.g. 2.0) cannot poison the static slice
     # bounds downstream in _compact.
-    cap = _align_up(int(capacity_factor * chunk), WF_BLOCK)
+    cap = max(int(capacity_factor * chunk), 1)
     n_chunks = -(-total // chunk)
     nslots = n_chunks * ws
     if nslots >= int(_DEAD_BIT):
         raise ValueError("wavefront sort key packs slot ids into 30 bits")
     offset = jnp.int32(offset)
 
-    def trace_stream(acc, dropped, start):
+    def trace_chunk(carry, start):
+        acc, dropped = carry
         c_idx = start // chunk                   # this chunk's stripe
         k = jnp.arange(chunk, dtype=jnp.int32) // spp   # stripe-local
         slot = start // spp + k                  # chunk-contiguous acc id
         gpid = c_idx + k * n_chunks              # window-local pixel id
-        # Stripe pixels past the window (k*n_chunks overshoot) and whole
-        # tail stripes (streams rounding) carry zero intensity: their
-        # emissions are exact zeros wherever their slots land.
-        in_range = (gpid < npix) & (c_idx < n_chunks)
+        # Stripe pixels past the window (k*n_chunks overshoot) carry zero
+        # intensity: their emissions are exact zeros wherever their slots
+        # land.
+        in_range = gpid < npix
         gpid = jnp.minimum(gpid, npix - 1)
         sample = jnp.arange(chunk, dtype=jnp.int32) % spp
-        si = sample // cfg.alias_factor
-        sj = sample % cfg.alias_factor
         # shard_stride > 1: this call owns the INTERLEAVED frame pixels
         # {offset + j*shard_stride} (offset = shard id, stride = mesh
-        # size) — the sharding that balances hot strips across devices
-        # (BASELINE.md round-4 shard-balance study).  The frame clamp
-        # re-renders the last pixel on pad lanes so out-of-frame ids
-        # cannot stay live and eat capacity.
+        # size) — the sharding that balances hot strips across devices.
+        # The frame clamp re-renders the last pixel on pad lanes so
+        # out-of-frame ids cannot stay live and eat capacity.
         gp = jnp.minimum(offset + gpid * shard_stride,
                          cfg.num_pixels - 1)
-        dx, dy, dz = _camera_dirs(cfg, gp, si, sj)
-        zero = jnp.zeros_like(dx)
+        d = camera_rays(cfg, sample // cfg.alias_factor,
+                        sample % cfg.alias_factor, gp)
+        zero = jnp.zeros((chunk,), f32)
         one = jnp.where(in_range, f32(1.0), f32(0.0))
         # Camera rays start in the background medium: index -1.
-        state = (zero, zero, zero, dx, dy, dz, one, one, one,
+        state = (zero, zero, zero, d[:, 0], d[:, 1], d[:, 2], one, one, one,
                  zero + f32(-1.0))
 
         # slot ids are sorted only when they came out of _compact (the
-        # no-sort branch interleaves [refraction | reflection] blocks
-        # tile-wise); sorted levels take the segmented-reduction
-        # accumulator.  seg_extra: block-local compaction leaves <= LANES
-        # dead fillers per block seam, each splitting at most one pid run
-        # and adding one zero-valued boundary — widen the segsum prefix
-        # accordingly (exact: split runs scatter-add to the same pixel).
+        # no-sort branch interleaves [refraction | reflection] halves);
+        # sorted levels take the segmented-reduction accumulator.
         sid = slot
         sid_sorted = False
-        seg_extra = 0
         # Every ray of this chunk — at EVERY level — maps to one of the
         # chunk's ws slots [w0, w0+ws), so all levels accumulate into a
-        # ws-sized WINDOW and the big slot accumulator is touched once
-        # per chunk (a window slice-add at the end).  Before this, each
-        # level's scatter flowed the full nslots arrays through the
-        # chunk's dataflow (3 channels x levels x 8 MB at config 5);
-        # the window keeps the per-level accumulate working set at
-        # 3 x ws floats.
+        # ws-sized WINDOW and the slot accumulator is touched once per
+        # chunk (a window slice-add at the end).
         w0 = start // spp
         accw = None
         for level in range(cfg.max_depth + 1):
             spawn = level < cfg.max_depth
-            if ad:
-                em, ch = _wf_level_ad(n_spheres, n_lights, spawn,
-                                      interpret)(
-                    scene_tbl, lights_tbl, bg_tbl, state)
-                children = ch if spawn else None
-            else:
-                em, children = _wf_level_call(
-                    scene_tbl, lights_tbl, bg_tbl, state, n_spheres,
-                    n_lights, spawn, interpret)
+            em, children = _wf_level(scene, state, spawn)
             if level == 0:
                 # Camera rays: window slots are positional — the window
                 # IS the (ws, spp) reshape-sum.  Out-of-range rays carry
@@ -1198,17 +513,12 @@ def _render_wavefront_impl(scene, cfg: RenderConfig, chunk_rays: int,
             elif sid_sorted:
                 # Post-compaction levels: slot-sorted, <= ws distinct
                 # live slots — segmented pre-reduction, then a static
-                # ws-length scatter (see _segsum_scatter; custom VJP
-                # keeps the AD path off XLA's sort-VJP and off the
-                # round-3 lax.switch whose differentiated branches blew
-                # the compiled program size).  Dead rays' window-local
-                # ids stay huge (sid 0x3FFFFFFF) and clamp onto zero
-                # values — exact.
+                # ws-length scatter (see _segsum_scatter).  Dead rays'
+                # window-local ids stay huge (sid 0x3FFFFFFF) and clamp
+                # onto zero values — exact.
                 accw = _segsum_scatter(accw, em, sid - w0, ws,
-                                       min(ws + seg_extra, sid.shape[0]),
-                                       spp * 2 ** level,
-                                       compact_mode == "blocked",
-                                       interpret)
+                                       min(ws, sid.shape[0]),
+                                       spp * 2 ** level)
             else:
                 # Unsorted fallback (eager_sort off while children fit
                 # capacity): plain scatter, bit-identical to an unsorted
@@ -1218,59 +528,29 @@ def _render_wavefront_impl(scene, cfg: RenderConfig, chunk_rays: int,
             if not spawn:
                 break
             r = state[0].shape[0]
-            sid2 = _dup_tilewise(sid, r // WF_BLOCK)
+            sid2 = jnp.concatenate([sid, sid])
             if 2 * r <= cap and not eager_sort:
                 state, sid = children, sid2      # fits: no sort, no drops
                 sid_sorted = False
             else:
                 keep = min(2 * r, cap)
-                if compact_mode == "blocked":
-                    if ad:
-                        state, sid, ndrop, _ = _compact_blocked_ad(
-                            children, sid2, keep, interpret)
-                    else:
-                        state, sid, ndrop, _ = _compact_blocked(
-                            children, sid2, keep, interpret)
-                    seg_extra = 2 * ((2 * r) // (2 * WF_BLOCK)) + 1
-                elif ad:
-                    state, sid, ndrop, _ = _compact_ad(children, sid2, keep)
-                else:
-                    state, sid, ndrop, _ = _compact(children, sid2, keep)
+                compact = _compact_ad if ad else _compact
+                state, sid, ndrop, _ = compact(children, sid2, keep)
                 sid_sorted = True
                 dropped = dropped + ndrop
         # Fold the window into the slot accumulator: one ws-slice
-        # read-add-write (dynamic_update_slice is the free op class,
-        # tools/scatter_bench.py).  Tail streams past the frame clamp
-        # onto real slots but their windows are exact zeros.
+        # read-add-write.
         acc = tuple(
             jax.lax.dynamic_update_slice(
                 a, jax.lax.dynamic_slice(a, (w0,), (ws,)) + w, (w0,))
             for a, w in zip(acc, accw))
-        return acc, dropped
-
-    def trace_chunk(carry, start_vec):
-        # `streams` chunk pipelines per scan step.  Each stream's heavy
-        # kernel/sort/window chain depends only on its start — the only
-        # cross-stream edge is the final ws-sized window fold into the
-        # shared accumulator, so XLA's scheduler can still overlap one
-        # stream's DMA with another's compute (the round-3 rationale for
-        # private accumulators; the window design keeps the independence
-        # without materializing nslots-sized privates).
-        acc, dropped = carry
-        for s_i in range(streams):
-            acc, dropped = trace_stream(acc, dropped, start_vec[s_i])
         return (acc, dropped), None
 
     acc0 = tuple(jnp.zeros((nslots,), jnp.float32) for _ in range(3))
-    n_steps = -(-n_chunks // streams)
-    # Tail starts past `total` are harmless: their rays are in_range-masked
-    # to zero intensity, and zero emissions fold into acc exactly.
-    starts = (jnp.arange(n_steps * streams, dtype=jnp.int32) * chunk
-              ).reshape(n_steps, streams)
+    starts = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
     # Under reverse AD the scan would otherwise save every chunk's full
     # per-level residual set; checkpointing the body re-runs each chunk's
-    # forward during the backward sweep instead (the per-level custom-VJP
-    # kernels then rematerialize inside their own backward).
+    # forward during the backward sweep instead.
     body = jax.checkpoint(trace_chunk) if ad else trace_chunk
     (acc, dropped), _ = jax.lax.scan(body, (acc0, jnp.int32(0)), starts)
     if n_chunks > 1:
@@ -1283,78 +563,43 @@ def _render_wavefront_impl(scene, cfg: RenderConfig, chunk_rays: int,
 
 def render_pixels_wavefront(scene, cfg: RenderConfig,
                             chunk_rays: int = 1 << 18,
-                            capacity_factor: int = 2,
+                            capacity_factor: float = 2.0,
                             eager_sort: bool = True,
-                            interpret: bool = False,
                             return_info: bool = False,
                             offset=0, count=None, ad: bool = False,
-                            streams: int = 1, shard_stride: int = 1,
-                            compact_mode: str = "auto"):
+                            shard_stride: int = 1):
     """Wavefront render of the `count` frame pixels
     {offset + j*shard_stride : j < count} -> (count, 3) linear colour
     (the full frame by default; `shard_stride` = mesh size + offset =
     shard id is the interleaved per-device form that balances hot strips
-    across devices — BASELINE.md round-4 shard-balance study).
+    across devices).
 
-    With `ad`, the render is differentiable w.r.t. every scene leaf: each
-    level call becomes a custom-VJP pair (forward kernel + per-level
-    backward kernel) and XLA autodiff carries cotangents through the
-    sort/scatter glue — see raytpu.grad.loss_and_grad_wavefront.
+    With `ad`, the render is differentiable w.r.t. every scene leaf (XLA
+    autodiff through the level bodies, custom VJPs on the permutations) —
+    see raytpu.grad.loss_and_grad_wavefront.
 
-    `chunk_rays` bounds live memory (camera rays per scan step); smaller
-    working sets win on v5e until chunks get too small to fill the
-    machine.  `capacity_factor` x chunk_rays is the per-level live-ray
-    capacity; shrinking it shrinks every level array and is the other
-    frame-time lever.  Since round 4's STRIDED chunk->pixel assignment
-    every chunk sees frame-average liveness (not a hot pixel strip), so
-    the zero-drop frontier no longer depends on chunk size: config-5 d6
-    measures 3.84 s at 256K x 1.25, 4.09 s at 512K x 1.25, 4.13 s at
-    256K x 1.5 — all zero drops (tools/wf_frontier.py, BASELINE.md
-    round-4 studies; the pre-striding contiguous order needed 2.0).
-    Always check `return_info`'s counter when tuning — capacity needs
-    are scene-dependent.  2.0 stays the default contract.
-    `streams` runs that many independent chunk pipelines per scan step
-    into private accumulators (exactness unchanged — emissions are
-    additive).  Measured NEUTRAL on v5e at the tuned config-5 setting
-    (5.79 vs 5.78 s): the TPU executes one kernel at a time, so
-    dataflow-independent chains do not overlap; the knob stays for other
-    topologies and as the record of that experiment.
+    `chunk_rays` bounds live memory (camera rays per scan step).
+    `capacity_factor` x chunk_rays is the per-level live-ray capacity;
+    shrinking it shrinks every level array and is the other frame-time
+    lever.  Since the STRIDED chunk->pixel assignment every chunk sees
+    frame-average liveness (not a hot pixel strip), so the zero-drop
+    frontier does not depend on chunk size.  Always check `return_info`'s
+    counter when tuning — capacity needs are scene-dependent.  2.0 stays
+    the default contract.
     `eager_sort` compacts at EVERY spawn level (even when the children fit
-    capacity): the dead-last sort concentrates live rays so whole kernel
-    tiles early-exit; with it off, under-capacity levels skip the sort and
-    are bit-identical to an unsorted wavefront.
-    `compact_mode`: "blocked" sorts each tile's children independently
-    (batched co-sort) and concatenates live prefixes with a cursor-copy
-    kernel (_compact_blocked) — same per-pixel sums up to FP
-    reassociation and exact drop accounting, with <= 128 zero-state
-    filler rays per block seam eating capacity; "global" runs the
-    full-length 11-operand co-sort.  "auto" (default) picks blocked for
-    forward renders — measured 2.87-2.80 s vs 2.97 at the round-4
-    global frontier, and it reverses the chunk-size preference (512K-1M
-    chunks now fastest; the global sort's O(n log^2 n) was what made
-    small chunks win) — and global for ad=True (BASELINE.md round-5
-    studies).  ad=True + "blocked" runs _compact_blocked_ad, whose
-    custom backward inverts (per-block sort, cursor placement) with an
-    inverse-cursor kernel + batched co-sorts.  `offset`/`count` select a
-    contiguous pixel window — the per-shard form for render_sharded
-    (offset may be a traced scalar; count must be static).  With
-    `return_info`, also returns {'dropped': <int32 device scalar>} — live
-    rays past capacity (0 on every BASELINE config at the default factor);
-    it stays a device scalar so the call works under jit/shard_map —
-    int() it outside jit before serializing."""
-    # "auto" = blocked everywhere since the AD A/B (BASELINE.md round-5:
-    # blocked 512K x 0.9375 trains 9.96 s/step vs the tuned global's
-    # 10.71; forward 2.80 vs 2.97 s).
-    if compact_mode == "auto":
-        compact_mode = "blocked"
+    capacity), so each level's work is bounded by the capacity; with it
+    off, under-capacity levels skip the sort and are bit-identical to an
+    unsorted wavefront.  `offset`/`count` select a pixel window — the
+    per-shard form for render_sharded (offset may be a traced scalar;
+    count must be static).  With `return_info`, also returns
+    {'dropped': <int32 device scalar>} — live rays past capacity; it stays
+    a device scalar so the call works under jit/shard_map — int() it
+    outside jit before serializing."""
     img, dropped = _render_wavefront_impl(
         scene, cfg, chunk_rays=chunk_rays, capacity_factor=capacity_factor,
-        eager_sort=eager_sort, interpret=interpret, offset=offset,
-        count=count, ad=ad, streams=streams, shard_stride=shard_stride,
-        compact_mode=compact_mode)
+        eager_sort=eager_sort, offset=offset, count=count, ad=ad,
+        shard_stride=shard_stride)
     if return_info:
-        # `dropped` stays a device scalar so return_info works under
-        # jit/shard_map (int() would force concretization there).
         return img, dict(dropped=dropped)
     return img
 

@@ -2,7 +2,7 @@
 
 Every op is written mask-first: per-lane control flow from the reference
 (C `if`s in raytracer.h) becomes `jnp.where` over batched arrays, which is the
-only shape that vectorizes on the TPU VPU and stays differentiable.
+shape that vectorizes across rays and stays differentiable.
 """
 
 from raytpu.ops.algebra import is_zero, solve_quadratic

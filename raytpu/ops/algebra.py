@@ -2,7 +2,7 @@
 
 Reference: algebra.h — TOL=1e-3 (algebra.h:10), isZero (algebra.h:12-14),
 solveQuadratic (algebra.h:22-65).  The C solver returns 0/1/2 roots through an
-out-array; the branchless TPU form returns a fixed-shape pair
+out-array; the branchless batched form returns a fixed-shape pair
 (roots[..., 2], nroots[...]) where unused root slots are filled with the
 valid root (nroots==1) or are unspecified (nroots==0).
 """

@@ -10,10 +10,8 @@ Reference semantics reproduced exactly (in masked/batched form):
                                            radius inflated by 1e-6, else -1)
 
 All ops are batched over an arbitrary leading ray shape (..., 3) against all
-N spheres at once — the per-sphere C loop becomes one (..., N) tensor op,
-which is the whole point on a TPU: 8x128 VPU lanes instead of a scalar loop,
-and the o.c / d.c dot products are einsums XLA can fuse or lift to the MXU
-for large N.
+N spheres at once — the per-sphere C loop becomes one (..., N) tensor op
+that XLA fuses into a per-ray reduction over spheres.
 """
 
 from __future__ import annotations
@@ -60,9 +58,9 @@ def ray_sphere_t(origin, direction, centers, radii):
     """
     # Quadratic coefficients: a = d.d, b = 2 d.(o-c), c = |o-c|^2 - r^2
     # (raytracer.h:95-100).  Kept in the reference's operation order as
-    # explicit elementwise math: on TPU this is exact-f32 VPU work, whereas
-    # an einsum formulation would route through the MXU at its default
-    # (bf16-accumulated) precision and wreck the root cancellation.
+    # explicit elementwise f32 math: an einsum formulation could run on the
+    # matrix units at reduced (bf16/TF32) precision and wreck the root
+    # cancellation.
     disp = origin[..., None, :] - centers                          # (..., N, 3)
     a = dot3(direction, direction)[..., None]                      # (..., 1)
     b = jnp.float32(2.0) * dot3(direction[..., None, :], disp)     # (..., N)
@@ -85,6 +83,18 @@ def ray_sphere_t(origin, direction, centers, radii):
     t = jnp.minimum(t0, t1)
     found = t < big
     return t, found
+
+
+@jax.custom_jvp
+def _value_with_grad_of(value, carrier):
+    """Returns `value`; differentiates as `carrier` (same shape)."""
+    del carrier
+    return value
+
+
+@_value_with_grad_of.defjvp
+def _value_with_grad_of_jvp(primals, tangents):
+    return primals[0], tangents[1]
 
 
 @dataclasses.dataclass
@@ -111,17 +121,28 @@ def closest_hit(origin, direction, spheres) -> Hit:
     A sphere wins if its t is strictly below the running minimum initialised
     to kMaxRenderDist=1000 — i.e. t must be < 1000, and on exact ties the
     lowest sphere index wins (argmin returns the first minimum).
+
+    The selection is a step function of the scene, so it runs on
+    stop-gradient inputs.  The gradient of t is carried by the winner's t
+    recomputed from its own centre and radius (`_value_with_grad_of`), so
+    the value stays the selected one bit for bit and reverse-mode AD keeps
+    O(rays) residuals per level instead of O(rays x spheres).
     """
-    t_all, found_all = ray_sphere_t(origin, direction, spheres.pos, spheres.radius)
+    sg = jax.lax.stop_gradient
+    t_all, found_all = ray_sphere_t(sg(origin), sg(direction),
+                                    sg(spheres.pos), sg(spheres.radius))
     valid = found_all & (t_all < K_MAX_RENDER_DIST)
     t_masked = jnp.where(valid, t_all, K_SMALLEST_T_INIT)
     index = jnp.argmin(t_masked, axis=-1).astype(jnp.int32)
     found = jnp.any(valid, axis=-1)
     t = jnp.take_along_axis(t_masked, index[..., None], axis=-1)[..., 0]
+    center = spheres.pos[index]                      # (..., 3) gather
+    t_w, _ = ray_sphere_t(origin, direction, center[..., None, :],
+                          spheres.radius[index][..., None])
+    t = _value_with_grad_of(t, t_w[..., 0])
     t = jnp.where(found, t, K_MAX_RENDER_DIST)
 
     point = origin + t[..., None] * direction
-    center = spheres.pos[index]                      # (..., 3) gather
     normal = normalize(point - center)
     sq_dist = t * t * dot3(direction, direction)
     return Hit(found=found, t=t, point=point, normal=normal,

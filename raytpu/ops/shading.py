@@ -20,6 +20,7 @@ golden-image tests.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -78,9 +79,13 @@ def matte_light_sum(point, normal, spheres, lights):
     gap = dot3(dist, dist)                         # (..., L)  distMagSquared
     ldir = normalize(dist)                         # unit, as the C shadow ray
 
-    # Shadow test against every sphere: (..., L, N)
-    t, found = ray_sphere_t(point[..., None, :], ldir, spheres.pos, spheres.radius)
-    blocking = found & (t < K_MAX_RENDER_DIST) & (t * t < gap[..., None])
+    # Shadow test against every sphere: (..., L, N).  Visibility is a step
+    # function (zero gradient almost everywhere), so it runs on
+    # stop-gradient inputs and autodiff keeps no (..., L, N) residuals.
+    sg = jax.lax.stop_gradient
+    t, found = ray_sphere_t(sg(point)[..., None, :], sg(ldir),
+                            sg(spheres.pos), sg(spheres.radius))
+    blocking = found & (t < K_MAX_RENDER_DIST) & (t * t < sg(gap)[..., None])
     clear = ~jnp.any(blocking, axis=-1)            # (..., L)
 
     incidence = dot3(normal[..., None, :], ldir)   # (..., L)

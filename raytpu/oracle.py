@@ -2,8 +2,8 @@
 
 This is an independent re-derivation of the reference's rayTrace stack
 machine (raytracer.h:410-636) as a *recursion with a stack budget*, used to
-validate the TPU tracer against the checked-in golden PPMs.  It reproduces
-the reference bit-semantics including its bugs/UB, which the clean TPU path
+validate the JAX tracers against the checked-in golden PPMs.  It reproduces
+the reference bit-semantics including its bugs/UB, which the clean JAX path
 deliberately fixes:
 
   * Stack-capacity truncation.  The reference's depth counter never grows

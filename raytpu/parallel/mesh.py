@@ -2,9 +2,9 @@
 
 The reference's entire "distribution" story is a single OpenCL device found
 by a GPU-type scan (main.cpp:206-211) and a capability printout
-(device_info.cpp:30-125).  The TPU-native equivalents:
+(device_info.cpp:30-125).  The JAX equivalents:
 
-  * `make_mesh`      — a 1-D jax.sharding.Mesh over all addressable chips;
+  * `make_mesh`      — a 1-D jax.sharding.Mesh over all addressable devices;
                        the axis (default 'px') shards the pixel grid, the
                        ray-tracing analogue of data/sequence parallelism.
                        Scene parameters are replicated (the multi-chip

@@ -2,10 +2,9 @@
 
 The reference stores the scene as arrays-of-structs shared bit-for-bit between
 host and OpenCL device (sphere.h:9-14, material.h:8-14, the live Light at
-raytracer.h:20-25, uploaded at main.cpp:289-294).  On TPU the natural layout is
-struct-of-arrays: each field is one contiguous (N, ...) array so the VPU
-vectorizes over objects and the MXU can treat centre/position blocks as
-matrices.  These pytrees are also the differentiable leaves for the
+raytracer.h:20-25, uploaded at main.cpp:289-294).  For batched JAX code the
+natural layout is struct-of-arrays: each field is one contiguous (N, ...)
+array, so per-sphere math vectorizes over objects.  These pytrees are also the differentiable leaves for the
 gradient-fit task (BASELINE.json).
 
 Materials are folded into `Spheres` (one material per sphere, as in the

@@ -1,7 +1,7 @@
 """The tracer: camera model, supersampling, and the fixed-depth bounce loop.
 
 This replaces the reference's per-ray explicit stack machine (rayTrace,
-raytracer.h:410-636) with a TPU-shaped *breadth-first ray tree*: every
+raytracer.h:410-636) with a vectorized *breadth-first ray tree*: every
 recursion level is one fully-vectorized batch over all live rays, doubling in
 width each level (refraction child + reflection child per hit,
 SURVEY.md section 3.2).  Instead of per-lane control flow there are lane
@@ -36,9 +36,10 @@ from raytpu.ops.geometry import closest_hit, normalize
 from raytpu.ops.shading import is_significant, matte_light_sum, reflect, refract
 
 
-def camera_rays(cfg: RenderConfig, sample_i: int, sample_j: int, gid=None):
+def camera_rays(cfg: RenderConfig, sample_i, sample_j, gid=None):
     """Unit direction for pixels `gid` (default: all H*W) of supersample
-    (i, j), shape (len(gid), 3).
+    (i, j), shape (len(gid), 3).  `sample_i`/`sample_j` are ints or
+    per-ray int arrays (the wavefront tracer mixes samples in one batch).
 
     Mirrors raytrace_kernel.cl:910-952 (see module docstring).  The camera
     sits at the origin with intensity (1,1,1).  Passing an explicit `gid`
@@ -59,8 +60,8 @@ def camera_rays(cfg: RenderConfig, sample_i: int, sample_j: int, gid=None):
     px = (ix - w * jnp.float32(0.5)) * xstep
     py = (h * jnp.float32(0.5) - iy) * ystep
 
-    x = (px + jnp.float32(sample_j) * sub) * aspect
-    y = py + jnp.float32(sample_i) * sub
+    x = (px + jnp.asarray(sample_j, jnp.float32) * sub) * aspect
+    y = py + jnp.asarray(sample_i, jnp.float32) * sub
     z = jnp.full_like(x, jnp.float32(cfg.zoom))
     return normalize(jnp.stack([x, y, z], axis=-1))
 
@@ -77,10 +78,14 @@ def _gather_medium(spheres, bg, index):
     return matte, ior, opacity
 
 
-def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
-                 med_opacity, spawn: bool):
+def _trace_level(scene, origin, direction, intensity, medium, spawn: bool):
     """One bounce level: emissions for every ray in the batch, plus (if
     `spawn`) the refraction+reflection children, concatenated (2B rays).
+
+    `medium` is the index of the sphere each ray travels through (-1 = the
+    scene background); its matte/ior/opacity are gathered here, so a ray's
+    state is (origin, direction, intensity, medium) and children carry the
+    refraction target's index (refracted) or the parent's (reflected).
 
     Emission semantics (rayTrace stage 0, raytracer.h:454-550):
       miss  -> intensity * medium.matte  (background paint; note the
@@ -94,9 +99,11 @@ def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
     child carries ((transparency*R)*(1,1,1) + medium.opacity*gloss)*I — the
     reference's quirk of scaling the hit object's gloss by the *containing
     medium's* opacity — gated by its own significance test, travelling in the
-    parent's medium.
+    parent's medium.  Unspawned children carry exactly-zero intensity, which
+    is what lets the wavefront tracer drop them.
     """
     spheres, lights, bg = scene.spheres, scene.lights, scene.bg
+    med_matte, med_ior, med_opacity = _gather_medium(spheres, bg, medium)
     hit = closest_hit(origin, direction, spheres)
     sig = is_significant(intensity)
     live = hit.found & sig
@@ -127,7 +134,6 @@ def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
         spawn_mask[..., None],
         (transparency * (jnp.float32(1.0) - refl_factor))[..., None] * intensity,
         jnp.float32(0.0))
-    t_matte, t_ior, t_opacity = _gather_medium(spheres, bg, target_idx)
 
     # Reflection child (stage 1, raytracer.h:552-615).
     refl_col = ((transparency * refl_factor)[..., None]
@@ -141,9 +147,7 @@ def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
         cat(r_origin, g_origin),
         cat(r_dir, g_dir),
         cat(r_intensity, g_intensity),
-        cat(t_matte, med_matte),
-        cat(t_ior, med_ior),
-        cat(t_opacity, med_opacity),
+        cat(target_idx, medium),
     )
     return emission, children
 
@@ -154,12 +158,10 @@ def trace_rays(scene, origin, direction, intensity, max_depth: int):
     medium (the kernel's mock bgMaterial, raytrace_kernel.cl:939-942)."""
     b = direction.shape[0]
     origin = jnp.broadcast_to(origin, direction.shape).astype(jnp.float32)
-    med_matte = jnp.broadcast_to(scene.bg.matte, (b, 3))
-    med_ior = jnp.broadcast_to(scene.bg.ior, (b,))
-    med_opacity = jnp.broadcast_to(scene.bg.opacity, (b,))
+    medium = jnp.full((b,), -1, jnp.int32)
 
     total = jnp.zeros((b, 3), jnp.float32)
-    state = (origin, direction, intensity, med_matte, med_ior, med_opacity)
+    state = (origin, direction, intensity, medium)
     for level in range(max_depth + 1):
         emission, children = _trace_level(scene, *state, spawn=level < max_depth)
         # Sum this level's emissions back onto the original B rays: level d
@@ -191,6 +193,9 @@ def render_pixels(scene, cfg: RenderConfig, gid):
     Chunks the block with lax.map so the 2^depth ray tree's live memory stays
     bounded; this is also the per-shard body for the multi-chip driver
     (raytpu.render.render_sharded), where `gid` is one device's pixel shard.
+    Under reverse-mode AD each chunk is rematerialized (jax.checkpoint), so
+    the backward holds one chunk's residuals at a time instead of the whole
+    frame's bounce trees.
     """
     b = gid.shape[0]
     chunk = min(cfg.chunk_pixels, b)
@@ -198,9 +203,9 @@ def render_pixels(scene, cfg: RenderConfig, gid):
     pad = num_chunks * chunk - b
     if pad:
         gid = jnp.concatenate([gid, jnp.zeros(pad, gid.dtype)])
-    out = jax.lax.map(
-        functools.partial(_render_gid_chunk, scene, cfg=cfg),
-        gid.reshape(num_chunks, chunk))
+    chunk_fn = jax.checkpoint(_render_gid_chunk, static_argnums=(2,))
+    out = jax.lax.map(lambda g: chunk_fn(scene, g, cfg),
+                      gid.reshape(num_chunks, chunk))
     return out.reshape(-1, 3)[:b]
 
 

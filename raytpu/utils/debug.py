@@ -8,8 +8,8 @@ functional so data races cannot exist; the equivalents provided here:
     float checks: returns (image, error); any NaN/Inf produced anywhere in
     the trace is reported with its source location instead of silently
     propagating into pixels.
-  * interpret mode — the Pallas kernels accept interpret=True and run on the
-    host interpreter (used throughout tests/test_pallas.py); that is the
+  * interpret mode — the Pallas kernel accepts interpret=True and runs in
+    the host interpreter (used throughout tests/test_pallas.py); that is the
     kernel-level sanitizer.
 """
 

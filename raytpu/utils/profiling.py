@@ -2,7 +2,7 @@
 
 The reference's whole observability story is one chrono wall-clock around
 enqueue+finish printed as "Exec time" (main.cpp:352-374) plus a device-info
-dump.  The TPU-native equivalents here:
+dump.  The JAX equivalents here:
 
   * Timer            — block_until_ready wall-clock sections with a
                        structured summary (feeds the bench JSON).

@@ -102,9 +102,7 @@ def test_loss_and_grad_sharded_wavefront_raises_on_drops():
     from raytpu.grad import loss_and_grad_sharded
     from raytpu.parallel.mesh import make_mesh
 
-    # 256x64 over 2 shards: each shard's window is the 8192 rays that
-    # overflow capacity 1.0 (capacity aligns up to one whole WF_BLOCK, so
-    # a smaller per-shard window could never drop).
+    # 256x64 over 2 shards: each shard's window overflows capacity 1.0.
     cfg = RenderConfig(width=256, height=64, max_depth=2, alias_factor=1)
     scene = _overflow_scene()
     target = jnp.zeros((cfg.num_pixels, 3), jnp.float32)

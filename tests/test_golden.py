@@ -42,7 +42,7 @@ def _render_rows(rows, cfg, scene, cap):
 
 
 @pytest.fixture(scope="module")
-def golden():
+def golden(reference_renders):
     return read_ppm(GOLDEN_PATH)
 
 
@@ -84,7 +84,7 @@ def test_wrong_stack_capacity_does_not_match(golden):
     assert err.mean() > 0.5  # clearly worse than the cap=5 match (~1.4)
 
 
-def test_cpu_golden_2_is_byte_identical_to_cpu_golden():
+def test_cpu_golden_2_is_byte_identical_to_cpu_golden(reference_renders):
     """testPPM_CPU_2.ppm == testPPM_CPU.ppm byte-for-byte (measured,
     tools/fit_old_goldens.py) — the CPU-golden pin
     (test_native.test_native_cpu_golden_pinned) covers both artifacts."""
@@ -93,7 +93,7 @@ def test_cpu_golden_2_is_byte_identical_to_cpu_golden():
     np.testing.assert_array_equal(a, b)
 
 
-def test_old_gpu_goldens_are_one_family():
+def test_old_gpu_goldens_are_one_family(reference_renders):
     """testPPM_2.ppm and testPPM_GPU.ppm agree at 97.8% byte-exact with
     each other (one older-revision render family) while both sit at only
     ~91.6% against testPPM.ppm — the inventory split the best-known-match
@@ -104,7 +104,7 @@ def test_old_gpu_goldens_are_one_family():
     assert (bp == 0).mean() > 0.94  # 0.950 per-pixel (0.978 per-channel)
 
 
-def test_old_gpu_goldens_pinned():
+def test_old_gpu_goldens_pinned(reference_renders):
     """Best-known-match regression pin for testPPM_2 / testPPM_GPU
     (VERDICT round-3 item 5): they are renders of an OLDER code revision
     (the diff vs testPPM concentrates on the transparent/glossy spheres,

@@ -27,7 +27,7 @@ fit_golden_scene = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(fit_golden_scene)
 
 
-def test_fit_recovers_positions_against_real_golden():
+def test_fit_recovers_positions_against_real_golden(reference_renders):
     cfg = RenderConfig(alias_factor=1)          # 800x600 depth-5
     target = fit_golden_scene.golden_target()
     gid = jnp.arange(0, cfg.num_pixels, 117, dtype=jnp.int32)

@@ -91,64 +91,6 @@ def test_sharded_grad_matches_single_device():
                                    rtol=1e-4, atol=1e-10)
 
 
-def test_sharded_pallas_grad_matches_single_device():
-    # The flagship distributed path: fused Pallas forward+backward kernels
-    # inside the shard_map body (per-shard offset), scene cotangents psum'd
-    # by the shard_map transpose.  Interpret mode on the CPU mesh.
-    cfg = RenderConfig(width=32, height=8, max_depth=2, alias_factor=1)
-    scene = default_scene()
-    target = _target(scene, cfg) * 1.1
-    mesh = make_mesh(jax.devices()[:4])
-    l1, g1 = loss_and_grad(scene, cfg, target)
-    l2, g2 = loss_and_grad_sharded(scene, cfg, target, mesh,
-                                   backend="pallas")
-    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-4)
-    for a, b in zip(jax.tree_util.tree_leaves(g1),
-                    jax.tree_util.tree_leaves(g2)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=3e-4, atol=1e-8)
-
-
-def test_packed_loss_and_grad_matches_flat():
-    # The native-layout training step (no (P, 3) lane-padded arrays or
-    # transposes): loss and every gradient leaf must match the flat-layout
-    # fused path up to reduction order.  Width NOT a multiple of 128 so the
-    # tail-pad mask is exercised.
-    from raytpu.grad import (loss_and_grad_pallas, loss_and_grad_pallas_packed,
-                             pack_target)
-
-    cfg = RenderConfig(width=40, height=6, max_depth=2, alias_factor=2)
-    scene = default_scene()
-    target = _target(scene, cfg) * 1.15
-    l1, g1 = loss_and_grad_pallas(scene, cfg, target)
-    l2, g2 = loss_and_grad_pallas_packed(scene, cfg, pack_target(cfg, target))
-    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves(g1),
-                    jax.tree_util.tree_leaves(g2)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-9)
-
-
-def test_tiled_ad_masks_tail_cotangent():
-    # Grad of a PLAIN sum over the tiled output must equal grad of the sum
-    # over the flat (count, 3) output: tail-pad lanes re-render the last
-    # pixel and their cotangent must not multiply-count its scene gradient.
-    from raytpu.kernels.trace_pallas import (render_pixels_pallas_ad,
-                                             render_tiles_pallas_ad)
-
-    cfg = RenderConfig(width=40, height=6, max_depth=1, alias_factor=1)
-    scene = default_scene()
-    interp = jax.default_backend() != "tpu"
-    g1 = jax.grad(lambda s: jnp.sum(
-        render_tiles_pallas_ad(s, cfg, interp)))(scene)
-    g2 = jax.grad(lambda s: jnp.sum(
-        render_pixels_pallas_ad(s, cfg, interp)))(scene)
-    for a, b in zip(jax.tree_util.tree_leaves(g1),
-                    jax.tree_util.tree_leaves(g2)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-10)
-
-
 def test_finite_difference_opacity_ior():
     # Opacity and IOR probes (VERDICT round-3 item 7): both are smooth
     # multiplicative/refractive coordinates away from TIR boundaries —
@@ -189,11 +131,11 @@ def test_finite_difference_opacity_ior():
 def test_wavefront_grads_vs_finite_differences():
     # Direct FD check of the wavefront-AD path (VERDICT round-3 item 7):
     # previously it was only checked transitively (wavefront == dense ==
-    # jnp == FD).  64 spheres (the VMEM gather-table path), depth 3, with
-    # sphere 0 pinned front-and-center and transparent so its opacity/ior
-    # coordinates carry refraction gradients.  FD evaluations run the
-    # NON-AD wavefront forward — the custom-VJP primal is the same
-    # _wf_level_call, so the two losses agree to float noise.
+    # jnp == FD).  64 spheres, depth 3, with sphere 0 pinned
+    # front-and-center and transparent so its opacity/ior coordinates carry
+    # refraction gradients.  FD evaluations run the NON-AD wavefront
+    # forward — the same level body, so the two losses agree to float
+    # noise.
     import dataclasses
 
     from raytpu.grad import loss_and_grad_wavefront
@@ -221,7 +163,7 @@ def test_wavefront_grads_vs_finite_differences():
     scene = dataclasses.replace(base, spheres=sph)
 
     def fwd(s):
-        return render_pixels_wavefront(s, cfg, interpret=True)
+        return render_pixels_wavefront(s, cfg)
 
     target = fwd(scene) * 0.5
 
@@ -270,13 +212,13 @@ def test_wavefront_grads_vs_finite_differences():
 def test_interleaved_sharded_grad_matches_block():
     # Interleaved training sharding (each device owns {shard + j*mesh};
     # the loss permutes the target to match) must reproduce the
-    # block-sharded loss and scene gradients on both the jnp and pallas
-    # backends — the mean and the psum'd cotangents are order-invariant.
+    # block-sharded loss and scene gradients on both training backends —
+    # the mean and the psum'd cotangents are order-invariant.
     cfg = RenderConfig(width=32, height=8, max_depth=2, alias_factor=1)
     scene = default_scene()
     target = _target(scene, cfg) * 1.1
     mesh = make_mesh(jax.devices()[:4])
-    for backend in ("jnp", "pallas"):
+    for backend in ("jnp", "wavefront"):
         l1, g1 = loss_and_grad_sharded(scene, cfg, target, mesh,
                                        backend=backend)
         l2, g2 = loss_and_grad_sharded(scene, cfg, target, mesh,

@@ -40,7 +40,7 @@ def test_ppm_roundtrip(tmp_path):
     np.testing.assert_array_equal(back, tone_map(img))
 
 
-def test_read_reference_golden():
+def test_read_reference_golden(reference_renders):
     g = read_ppm("/root/reference/raytracer_gamma/testPPM_CPU.ppm")
     assert g.shape == (600, 800, 3)
 

@@ -15,9 +15,9 @@ def test_two_process_distributed_render_and_grad(backend, port):
     devices via jax.distributed — sharded render, process_allgather, and the
     cross-process gradient psum, all compared against single-process
     results (tools/multiprocess_demo.py).  Parametrized over the three
-    gradient backends so the custom-VJP kernels' cotangent psum crosses a
-    REAL process boundary too (VERDICT r4 weak #5: the kernel paths used
-    to ride only the single-process 8-device mesh)."""
+    render backends (pallas in the Pallas interpreter, training through
+    jnp) so the wavefront's custom-VJP cotangent psum crosses a REAL
+    process boundary too."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # the demo sets its own device count
     out = subprocess.run(

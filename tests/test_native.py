@@ -44,7 +44,7 @@ def test_native_random_scene():
     np.testing.assert_array_equal(nat[mask], pyo[mask])
 
 
-def test_native_cpu_golden_pinned():
+def test_native_cpu_golden_pinned(reference_renders):
     """Pin the checked-in CPU goldens quantitatively (VERDICT round-1 item):
     testPPM_CPU.ppm / testPPM_CPU_2.ppm are renders of an older code
     revision of the reference, and the best any strict-semantics config
@@ -121,7 +121,7 @@ def test_native_offset_count():
     np.testing.assert_array_equal(part, full[100:164])
 
 
-def test_native_matches_golden_rows():
+def test_native_matches_golden_rows(reference_renders):
     # The fast path to golden confidence: whole rows against testPPM.ppm
     # (same thresholds as tests/test_golden.py, same max-bearing rows).
     golden = read_ppm("/root/reference/raytracer_gamma/testPPM.ppm")
@@ -142,7 +142,7 @@ def test_native_matches_golden_rows():
     assert err.mean() < 0.2
 
 
-def test_native_full_frame_golden():
+def test_native_full_frame_golden(reference_renders):
     # The OpenMP-parallel native oracle renders the entire golden frame in
     # under a second, so the byte-level contract holds at full scale here
     # (the row-subset tests exist for the slower numpy oracle).

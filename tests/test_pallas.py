@@ -1,22 +1,24 @@
-"""Pallas kernel vs jnp tracer (interpret mode on CPU).
+"""The fused forward kernel (Pallas, Triton route) vs the jnp tracer, in the
+Pallas interpreter on CPU.
 
 The two paths share semantics but not float op order, so edge pixels can
 flip discrete branches (closest-hit ties, shadow boundaries, significance
 cutoffs).  The contract is allclose-with-few-outliers, same as the
-reference's own CPU/GPU relationship (SURVEY.md section 3.3); on-hardware
-agreement is checked by the bench/verify flow.
+reference's own CPU/GPU relationship (SURVEY.md section 3.3); on-card
+agreement is checked by chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 
 from raytpu.config import RenderConfig
-from raytpu.kernels.trace_pallas import render_image_pallas
+from raytpu.kernels.trace_pallas import (BLOCK, render_image_pallas,
+                                         render_pixels_pallas)
 from raytpu.scene import default_scene, random_scene, single_sphere_scene
 from raytpu.trace import render_image
 
 
-def _compare(scene, cfg, frac_tol=0.01):
+def _compare(scene, cfg, frac_tol=0.01, mean_tol=1e-3):
     k = np.asarray(render_image_pallas(scene, cfg, interpret=True))
     j = np.asarray(render_image(scene, cfg))
     assert np.isfinite(k).all()
@@ -24,7 +26,8 @@ def _compare(scene, cfg, frac_tol=0.01):
     d = np.abs(k - j)
     outliers = (d.max(axis=-1) > 1e-2 * scale).mean()
     assert outliers <= frac_tol, f"outlier fraction {outliers}"
-    assert d.mean() < 1e-3 * scale, f"mean abs diff {d.mean()} vs scale {scale}"
+    assert d.mean() < mean_tol * scale, \
+        f"mean abs diff {d.mean()} vs scale {scale}"
 
 
 def test_single_sphere_depth0_exact():
@@ -45,7 +48,8 @@ def test_default_scene_supersampled():
 
 
 def test_nonaligned_pixel_count():
-    # 50x17 = 850 pixels: less than one 1024-pixel tile, exercises padding.
+    # 50x17 = 850 pixels: not a multiple of the BLOCK-ray program,
+    # exercises the padded tail block.
     cfg = RenderConfig(width=50, height=17, max_depth=1, alias_factor=1)
     _compare(default_scene(), cfg)
 
@@ -56,15 +60,15 @@ def test_many_spheres():
 
 
 def test_256_spheres_matches_jnp():
-    """BASELINE config-5 sphere count through the large-N kernel path
-    ((min_t, idx)-carry fori + chunked one-hot gathers), vs the jnp tracer.
+    """BASELINE config-5 sphere count through the kernel's looped sphere
+    path, vs the jnp tracer.
 
     Tolerances are looser than _compare's: a 256-sphere scene at a small
     frame is nearly all silhouette/shadow boundaries, and the kernel and the
     tracer are separately-compiled programs whose FMA-contraction choices
-    flip hit/shadow decisions on near-tangent pixels (the same phenomenon
-    quantified for the backward tests) — ~2% of pixels at <= 1e-3 absolute.
-    The mean-error bound still catches any systematic large-N defect."""
+    flip hit/shadow decisions on near-tangent pixels — ~2% of pixels at
+    <= 1e-3 absolute.  The mean-error bound still catches any systematic
+    large-N defect."""
     cfg = RenderConfig(width=64, height=8, max_depth=1, alias_factor=1)
     scene = random_scene(256, seed=3)
     k = np.asarray(render_image_pallas(scene, cfg, interpret=True))
@@ -83,324 +87,55 @@ def test_bg_opacity_flows_through():
     assert np.abs(a - b).max() > 0  # the UB knob must change glossy pixels
 
 
-def test_backward_fori_gather_path_vs_autodiff():
-    """The loop-based backward at N > UNROLL_SPHERES: fori selection loops +
-    one-hot gather matmuls + the wide-level ray chunking at depth 4.  The
-    per-tile reverse sweep (_bwd_tile_grads, exactly what the kernel runs per
-    grid step) is executed eagerly and compared against eager jax autodiff of
-    the same differentiable program — identical primal semantics and
-    identical compilation, so the comparison is noise-free to ~1e-9.
-
-    (Comparing the compiled kernel against a separately-compiled reference is
-    NOT noise-free: XLA's per-program FMA contraction choices flip
-    hit/shadow/significance branches on near-tangent lanes, whose pos/radius
-    gradients are 1/sqrt(radicand)-amplified.  The kernel wiring itself —
-    pallas_call, SMEM/VMEM staging, grid accumulation, repacking — is
-    N-independent and pinned by the small-N kernel tests below.)"""
-    import jax
-    import jax.numpy as jnp
-
-    from raytpu.config import RenderConfig as RC
-    from raytpu.kernels.trace_pallas import (LANES, LIGHT_ROWS, TILE_ROWS,
-                                             _bwd_tile_grads, _camera_dirs,
-                                             _scene_tables, _ScalarTable,
-                                             _trace_tree, _VjpScene)
-
-    n = 24
-    depth = 4
-    cfg = RC(width=LANES, height=TILE_ROWS, max_depth=depth, alias_factor=1)
-    scene = random_scene(n, seed=11)
-    tbl, ltbl, bgt = _scene_tables(scene)
-    n_lights = scene.lights.pos.shape[0]
-
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-        TILE_ROWS, LANES)
-    dx, dy, dz = _camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-    rng = np.random.default_rng(0)
-    g = jnp.asarray(rng.standard_normal((cfg.num_pixels, 3)), jnp.float32)
-    gw = tuple(g[:, k].reshape(TILE_ROWS, LANES) for k in range(3))
-    lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-               for r in range(LIGHT_ROWS))
-    bgv = tuple(bgt[k, 0] for k in range(5))
-
-    # early_exit=False keeps the sweep straight-line: the liveness conds'
-    # branches compile as fused sub-computations whose FMA choices differ
-    # from this test's eager op-by-op reference (the usual near-tangent
-    # noise class); test_bwd_early_exit_skip_is_exact pins the guards.
-    got = _bwd_tile_grads(tbl, tbl, lv, bgv, n, n_lights, depth,
-                          dx, dy, dz, gw, early_exit=False)
-
-    def weighted_sum(sv_vals, lv_vals, bgv_vals):
-        scn = _VjpScene(tbl, sv_vals, n)
-        lights = _ScalarTable(lv_vals)
-        bg = dict(matte_r=bgv_vals[0], matte_g=bgv_vals[1],
-                  matte_b=bgv_vals[2], ior=bgv_vals[3],
-                  opacity=bgv_vals[4])
-        ar, ag, ab = _trace_tree(scn, lights, bg, n_lights, depth,
-                                 dx, dy, dz, early_exit=False)
-        return jnp.sum(ar * gw[0] + ag * gw[1] + ab * gw[2])
-
-    want = jax.grad(weighted_sum, argnums=(0, 1, 2))(tbl, lv, bgv)
-
-    scale = float(np.abs(np.asarray(want[0])).max())
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
-                               rtol=1e-5, atol=1e-7 * scale)
-    for a, b in zip(jax.tree_util.tree_leaves(got[1:]),
-                    jax.tree_util.tree_leaves(want[1:])):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-7)
+def _scene_of(n):
+    if n == 1:
+        return single_sphere_scene()
+    if n == 3:
+        return default_scene()
+    return random_scene(n, seed=3)
 
 
-def test_bwd_fulltree_matches_per_level():
-    """The full-tree backward (_bwd_tile_grads_fulltree: one jax.vjp over
-    the whole bounce tree — kept behind RAYTPU_BWD_FULLTREE=always; the
-    per-level remat sweep measured faster on the bench frame, see the
-    module comment) computes the same scene/light/bg cotangents as the
-    per-level sweep."""
-    import jax
-    import jax.numpy as jnp
+@pytest.mark.parametrize("n_spheres", [1, 3, 17, 64])
+@pytest.mark.parametrize("depth", [0, 2, 5])
+def test_depth_first_walk_matches_jnp(depth, n_spheres):
+    """The depth-first tree walk (register stack, dead-subtree skip) at
+    depth 0 (no walk), 2 and 5, and sphere counts on both sides of the
+    unrolled/looped sphere loop (UNROLL_SPHERES), against the jnp tracer's
+    breadth-first tree.  The 64-sphere frame is silhouette-heavy and takes
+    the large-N tolerance of test_256_spheres_matches_jnp (near-tangent
+    flips; the parent revision's kernel measured 1.4% outliers and a
+    3e-3 relative mean on the same frames)."""
+    cfg = RenderConfig(width=64, height=16, max_depth=depth, alias_factor=1)
+    if n_spheres >= 64:
+        _compare(_scene_of(n_spheres), cfg, frac_tol=0.05, mean_tol=3e-3)
+    else:
+        _compare(_scene_of(n_spheres), cfg)
 
-    from raytpu.config import RenderConfig as RC
-    from raytpu.kernels.trace_pallas import (LANES, LIGHT_ROWS, TILE_ROWS,
-                                             _bwd_tile_grads,
-                                             _bwd_tile_grads_fulltree,
-                                             _camera_dirs, _scene_tables)
 
+@pytest.mark.parametrize("count", [1, BLOCK - 1, BLOCK + 1, 3 * BLOCK + 5])
+def test_ray_counts_not_dividing_the_block(count):
+    """Any pixel count: the tail program re-renders the last frame pixel
+    on its pad lanes, and the wrapper slices them off."""
+    cfg = RenderConfig(width=40, height=12, max_depth=2, alias_factor=2)
     scene = default_scene()
-    n = scene.spheres.pos.shape[0]
-    n_lights = scene.lights.pos.shape[0]
-    tbl, ltbl, bgt = _scene_tables(scene)
-    lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-               for r in range(LIGHT_ROWS))
-    bgv = tuple(bgt[k, 0] for k in range(5))
-    depth = 3
-    cfg = RC(width=LANES, height=TILE_ROWS, max_depth=depth, alias_factor=1)
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-        TILE_ROWS, LANES)
-    dx, dy, dz = _camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-    gw = tuple(jnp.full((TILE_ROWS, LANES), 0.5 + k, jnp.float32)
-               for k in range(3))
-    # early_exit=False on the per-level side: liveness-cond branches
-    # compile as fused subcomputations whose FMA-contraction choices differ
-    # from the fulltree's straight-line program (the same near-tangent
-    # noise class the autodiff-equivalence test documents).
-    want = _bwd_tile_grads(tbl, tbl, lv, bgv, n, n_lights, depth,
-                           dx, dy, dz, gw, early_exit=False)
-    got = _bwd_tile_grads_fulltree(tbl, tbl, lv, bgv, n, n_lights, depth,
-                                   dx, dy, dz, gw)
-    for a, b in zip(jax.tree_util.tree_leaves(got),
-                    jax.tree_util.tree_leaves(want)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-12)
-        np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-6 * scale)
+    full = np.asarray(render_pixels_pallas(scene, cfg, interpret=True))
+    part = np.asarray(render_pixels_pallas(scene, cfg, interpret=True,
+                                           count=count))
+    assert part.shape == (count, 3)
+    np.testing.assert_array_equal(part, full[:count])
 
 
-def test_blend_selects_bitwise_equal_straightline():
-    """The blend rewrite (a*m + b*(1-m), m in {0,1}) must be BITWISE equal
-    to the select form for the same straight-line program — a*1 = a,
-    b*0 = 0, a+0 = a are exact for the finite operands the tracer
-    guarantees.  This is the exactness lemma the ee backward mode rests
-    on; any site whose discarded branch can go non-finite would break it
-    loudly here (NaN * 0 = NaN)."""
-    import jax
-    import jax.numpy as jnp
-
-    import raytpu.kernels.trace_pallas as tp
-    from raytpu.config import RenderConfig as RC
-
+@pytest.mark.parametrize("offset,stride", [(7, 1), (3, 4), (0, 3)])
+def test_offset_stride_shard_contract(offset, stride):
+    """render_pixels_pallas renders exactly the pixels
+    {offset + j*stride : j < count} (the per-shard form of the sharded
+    driver), clamping past-the-frame ids to the last pixel."""
+    cfg = RenderConfig(width=40, height=12, max_depth=2, alias_factor=1)
     scene = default_scene()
-    n = scene.spheres.pos.shape[0]
-    n_lights = scene.lights.pos.shape[0]
-    tbl, ltbl, bgt = tp._scene_tables(scene)
-    lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-               for r in range(tp.LIGHT_ROWS))
-    bgv = tuple(bgt[k, 0] for k in range(5))
-    depth = 3
-    cfg = RC(width=tp.LANES, height=tp.TILE_ROWS, max_depth=depth,
-             alias_factor=1)
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-        tp.TILE_ROWS, tp.LANES)
-    dx, dy, dz = tp._camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-    gw = tuple(jnp.full((tp.TILE_ROWS, tp.LANES), 0.5 + k, jnp.float32)
-               for k in range(3))
-    want = tp._bwd_tile_grads_fulltree(tbl, tbl, lv, bgv, n, n_lights,
-                                       depth, dx, dy, dz, gw)
-    tp._BLEND_SELECTS = True
-    try:
-        got = tp._bwd_tile_grads_fulltree(tbl, tbl, lv, bgv, n, n_lights,
-                                          depth, dx, dy, dz, gw,
-                                          early_exit=False)
-    finally:
-        tp._BLEND_SELECTS = False
-    for a, b in zip(jax.tree_util.tree_leaves(got),
-                    jax.tree_util.tree_leaves(want)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_bwd_fulltree_early_exit_blend_matches_straightline():
-    """RAYTPU_BWD_FULLTREE=ee: the full-tree backward with the liveness
-    conds DIFFERENTIATED THROUGH (level bodies in blend form — every
-    cond-crossing residual f32, tools/probe_cond_f32_residuals.py) must
-    reproduce the straight-line full-tree cotangents.  Blend vs select is
-    BITWISE equal under the same program shape (verified: straight-line
-    blend == straight-line select exactly), so the residual noise here is
-    purely the cond-boundary fusion class — liveness-cond branches
-    compile as separate subcomputations whose FMA-contraction choices
-    flip near-tangent lanes (the documented measure-zero class, same
-    reason test_bwd_fulltree_matches_per_level compares straight-line to
-    straight-line) — hence the flip-class tolerance."""
-    import jax
-    import jax.numpy as jnp
-
-    from raytpu.config import RenderConfig as RC
-    from raytpu.kernels.trace_pallas import (LANES, LIGHT_ROWS, TILE_ROWS,
-                                             _bwd_tile_grads_fulltree,
-                                             _camera_dirs, _scene_tables)
-
-    scene = default_scene()
-    n = scene.spheres.pos.shape[0]
-    n_lights = scene.lights.pos.shape[0]
-    tbl, ltbl, bgt = _scene_tables(scene)
-    lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-               for r in range(LIGHT_ROWS))
-    bgv = tuple(bgt[k, 0] for k in range(5))
-    depth = 3
-    cfg = RC(width=LANES, height=TILE_ROWS, max_depth=depth, alias_factor=1)
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-        TILE_ROWS, LANES)
-    dx, dy, dz = _camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-    gw = tuple(jnp.full((TILE_ROWS, LANES), 0.5 + k, jnp.float32)
-               for k in range(3))
-    want = _bwd_tile_grads_fulltree(tbl, tbl, lv, bgv, n, n_lights, depth,
-                                    dx, dy, dz, gw)
-    got = _bwd_tile_grads_fulltree(tbl, tbl, lv, bgv, n, n_lights, depth,
-                                   dx, dy, dz, gw, early_exit=True)
-    for a, b in zip(jax.tree_util.tree_leaves(got),
-                    jax.tree_util.tree_leaves(want)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-12)
-        np.testing.assert_allclose(a, b, atol=5e-3 * scale)
-
-
-def test_backward_kernel_matches_jnp_autodiff():
-    import jax
-    import jax.numpy as jnp
-
-    from raytpu.grad import loss_and_grad
-    from raytpu.kernels.trace_pallas import render_pixels_pallas_ad
-    from raytpu.trace import render_pixels
-
-    cfg = RenderConfig(width=32, height=32, max_depth=2, alias_factor=1)
-    scene = default_scene()
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32)
-    target = render_pixels(scene, cfg, gid) * 1.5
-
-    def loss_pallas(s):
-        e = render_pixels_pallas_ad(s, cfg, True) - target
-        return jnp.mean(e * e)
-
-    l_k, g_k = jax.value_and_grad(loss_pallas)(scene)
-    l_j, g_j = loss_and_grad(scene, cfg, target)
-    np.testing.assert_allclose(float(l_k), float(l_j), rtol=1e-4)
-    for a, b in zip(jax.tree_util.tree_leaves(g_k),
-                    jax.tree_util.tree_leaves(g_j)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-12)
-        # agree where the jnp gradient is significant; near-zero coords may
-        # differ by branch-flip noise
-        mask = np.abs(b) > 1e-3 * scale
-        if mask.any():
-            np.testing.assert_allclose(a[mask], b[mask], rtol=5e-2,
-                                       atol=1e-12)
-
-
-def test_bwd_tile_grads_nondividing_chunk():
-    # N=300 picks a vjp row-chunk budget of 48 rows, which does not divide
-    # the power-of-two level widths; the chunk size must round down to
-    # TILE_ROWS * 2^k or the reverse sweep's final partial chunk mismatches
-    # its cotangent shapes (used to raise ValueError at trace time).
-    import jax.numpy as jnp
-
-    from raytpu.config import RenderConfig as RC
-    from raytpu.kernels.trace_pallas import (LANES, LIGHT_ROWS, TILE_ROWS,
-                                             _bwd_tile_grads, _camera_dirs,
-                                             _scene_tables)
-
-    n, depth = 300, 3
-    cfg = RC(width=LANES, height=TILE_ROWS, max_depth=depth, alias_factor=1)
-    scene = random_scene(n, seed=3)
-    tbl, ltbl, bgt = _scene_tables(scene)
-    n_lights = scene.lights.pos.shape[0]
-    gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-        TILE_ROWS, LANES)
-    dx, dy, dz = _camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-    gw = tuple(jnp.ones((TILE_ROWS, LANES), jnp.float32) for _ in range(3))
-    lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-               for r in range(LIGHT_ROWS))
-    bgv = tuple(bgt[k, 0] for k in range(5))
-    d_sv, d_lv, d_bgv = _bwd_tile_grads(tbl, tbl, lv, bgv, n, n_lights,
-                                        depth, dx, dy, dz, gw)
-    assert np.isfinite(np.asarray(d_sv)).all()
-    assert float(np.abs(np.asarray(d_sv)).sum()) > 0
-
-
-def test_bwd_early_exit_skip_is_exact(monkeypatch):
-    """The backward early exit (whole-block liveness conds around each
-    level/chunk vjp, trace_pallas._bwd_tile_grads) drops ONLY exactly-zero
-    contributions: the guarded sweep bit-matches a sweep whose liveness
-    predicate is forced always-true.  Both runs share the same cond
-    structure, so their branch compilations are identical — the only
-    difference is which branch executes, isolating the skip semantics.
-    Covered scenes: fully-opaque spheres (transparency 0 spawns nothing, so
-    every level past 0 is a dead block) and the default scene (mixed)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    import raytpu.kernels.trace_pallas as tp
-    from raytpu.config import RenderConfig as RC
-    from raytpu.kernels.trace_pallas import (LANES, LIGHT_ROWS, TILE_ROWS,
-                                             _bwd_tile_grads, _camera_dirs,
-                                             _scene_tables)
-
-    def run(scene, depth):
-        n = scene.spheres.pos.shape[0]
-        cfg = RC(width=LANES, height=TILE_ROWS, max_depth=depth,
-                 alias_factor=1)
-        tbl, ltbl, bgt = _scene_tables(scene)
-        n_lights = scene.lights.pos.shape[0]
-        gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32).reshape(
-            TILE_ROWS, LANES)
-        dx, dy, dz = _camera_dirs(cfg, gid, jnp.int32(0), jnp.int32(0))
-        gw = tuple(jnp.full((TILE_ROWS, LANES), 0.5 + k, jnp.float32)
-                   for k in range(3))
-        lv = tuple(tuple(ltbl[r, l] for l in range(n_lights))
-                   for r in range(LIGHT_ROWS))
-        bgv = tuple(bgt[k, 0] for k in range(5))
-        return _bwd_tile_grads(tbl, tbl, lv, bgv, n, n_lights, depth,
-                               dx, dy, dz, gw)
-
-    opaque = random_scene(4, seed=2)
-    opaque = dataclasses.replace(
-        opaque, spheres=dataclasses.replace(
-            opaque.spheres,
-            opacity=jnp.ones_like(opaque.spheres.opacity)))
-
-    # depth 4 makes level 4's 128 rows exceed the vjp row chunk (CHUNK=64
-    # at small sphere counts), so the CHUNKED vjp_block guard path and its
-    # dead-branch cotangents are pinned bit-for-bit too, not just the
-    # whole-level path depth 3 exercises.
-    for scene, depth in ((opaque, 3), (default_scene(), 3),
-                         (default_scene(), 4)):
-        guarded = run(scene, depth=depth)
-        # Traced always-true predicate: a concrete True would let jax
-        # partial-eval the cond away and change the branch compilation,
-        # breaking the bit-equality this test relies on.
-        monkeypatch.setattr(tp, "_bwd_alive",
-                            lambda st: jnp.max(st[6]) > -jnp.inf)
-        forced = run(scene, depth=depth)
-        monkeypatch.undo()
-        for a, b in zip(jax.tree_util.tree_leaves(guarded),
-                        jax.tree_util.tree_leaves(forced)):
-            assert np.array_equal(np.asarray(a), np.asarray(b))
+    full = np.asarray(render_pixels_pallas(scene, cfg, interpret=True))
+    count = -(-(cfg.num_pixels - offset) // stride)
+    part = np.asarray(render_pixels_pallas(scene, cfg, interpret=True,
+                                           offset=offset, count=count,
+                                           stride=stride))
+    ids = np.minimum(offset + np.arange(count) * stride, cfg.num_pixels - 1)
+    np.testing.assert_array_equal(part, full[ids])

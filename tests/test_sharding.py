@@ -36,12 +36,13 @@ def test_sharded_nondivisible_pixel_count():
 def test_sharded_pallas_matches_single_device(ndev):
     # The sharded Pallas path (per-shard `offset=gid[0]` wiring and the
     # check_vma=False escape hatch, raytpu/render.py) under the CPU mesh:
-    # off-TPU the kernel runs in interpret mode, so this exercises the real
+    # the kernel runs in the Pallas interpreter, so this exercises the real
     # shard_map + pallas_call composition end to end.
     scene = default_scene()
     cfg = RenderConfig(width=64, height=8, max_depth=2, alias_factor=1)
     mesh = make_mesh(jax.devices()[:ndev])
-    ours = np.asarray(render_sharded(scene, cfg, mesh, backend="pallas"))
+    ours = np.asarray(render_sharded(scene, cfg, mesh, backend="pallas",
+                                     interpret=True))
     ref = np.asarray(render_image(scene, cfg))
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
 
@@ -66,7 +67,8 @@ def test_interleaved_sharding_matches_block(backend):
     cfg = RenderConfig(width=17, height=3, max_depth=2, alias_factor=1)
     mesh = make_mesh()
     ours = np.asarray(render_sharded(scene, cfg, mesh, backend=backend,
-                                     interleave=True))
+                                     interleave=True,
+                                     interpret=backend == "pallas"))
     ref = np.asarray(render_image(scene, cfg))
     tol = dict(rtol=1e-5, atol=1e-7) if backend != "jnp" else \
         dict(rtol=1e-6, atol=1e-9)

@@ -1,31 +1,28 @@
-"""Wavefront tracer vs the dense Pallas kernel (both in interpret mode).
+"""Wavefront tracer vs the dense jnp tracer.
 
-The wavefront level body IS trace_pallas._trace_level, but the two paths
+The wavefront level body IS raytpu.trace._trace_level, but the two paths
 are separately compiled programs with different shapes and fusion
-contexts, so XLA's FMA-contraction choices differ and near-threshold
-branches (tangent hits, significance cutoffs) occasionally flip with
-full-magnitude per-pixel effect — measured at ~0.06% of pixels on the
-default scene at 80x60, where the flipped pixels match the jnp tracer,
-not the dense kernel.  The contract is therefore the repo's standard
-allclose-with-few-outliers (same as test_pallas._compare), plus a strict
-zero-drop check.  The drop counter is exercised with a scene engineered
-to overflow the per-level capacity.
+contexts, so XLA's FMA-contraction choices may differ and near-threshold
+branches (tangent hits, significance cutoffs) can flip with
+full-magnitude per-pixel effect.  The contract is therefore the repo's
+standard allclose-with-few-outliers (same as test_pallas._compare), plus a
+strict zero-drop check.  The drop counter is exercised with a scene
+engineered to overflow the per-level capacity.
 """
 
 import numpy as np
 
 import raytpu
 from raytpu.config import RenderConfig
-from raytpu.kernels.trace_pallas import render_pixels_pallas
 from raytpu.kernels.wavefront import render_pixels_wavefront
 from raytpu.render import render_single, render_sharded
 from raytpu.scene import build_scene, default_scene, make_material, random_scene
 
 
 def _assert_matches_dense(scene, cfg, frac_tol=0.005, **wf_kw):
-    ref = np.asarray(render_pixels_pallas(scene, cfg, interpret=True))
-    out, info = render_pixels_wavefront(scene, cfg, interpret=True,
-                                        return_info=True, **wf_kw)
+    ref = np.asarray(raytpu.render_image(scene, cfg)).reshape(-1, 3)
+    out, info = render_pixels_wavefront(scene, cfg, return_info=True,
+                                        **wf_kw)
     out = np.asarray(out)
     assert info["dropped"] == 0
     assert np.isfinite(out).all()
@@ -45,7 +42,7 @@ def test_wavefront_matches_dense_multichunk():
 
 
 def test_wavefront_matches_dense_large_n():
-    # N > UNROLL_SPHERES: the level kernel takes the VMEM gather-table path.
+    # 24 spheres, depth 4: the per-ray sphere reductions at a deep tree.
     cfg = RenderConfig(width=64, height=48, max_depth=4, alias_factor=1)
     _assert_matches_dense(random_scene(24, num_lights=2), cfg,
                           chunk_rays=4096, capacity_factor=2)
@@ -65,19 +62,16 @@ def test_wavefront_eager_sort_matches_no_sort():
     # reassociation (the scatter adds in a different order).
     cfg = RenderConfig(width=64, height=48, max_depth=3, alias_factor=1)
     scene = default_scene()
-    a = np.asarray(render_pixels_wavefront(scene, cfg, interpret=True,
-                                           eager_sort=True))
-    b = np.asarray(render_pixels_wavefront(scene, cfg, interpret=True,
-                                           eager_sort=False))
+    a = np.asarray(render_pixels_wavefront(scene, cfg, eager_sort=True))
+    b = np.asarray(render_pixels_wavefront(scene, cfg, eager_sort=False))
     scale = max(b.max(), 1e-30)
     assert np.abs(a - b).max() < 1e-4 * scale
 
 
 def test_wavefront_branch_flip_contract():
     # 80x60 at the default alias 3: the resolution where the dense kernel
-    # flips ~3 near-threshold pixels against the jnp tracer while the
-    # wavefront sides with the tracer (see module docstring) — pins the
-    # outlier contract at a frame where the flips actually occur.
+    # flips ~3 near-threshold pixels against the jnp tracer — pins the
+    # wavefront's outlier contract on the same frame.
     cfg = RenderConfig(width=80, height=60, max_depth=2)
     _assert_matches_dense(default_scene(), cfg, chunk_rays=1 << 20)
 
@@ -87,8 +81,7 @@ def test_wavefront_counts_dropped_rays():
     # wide camera frustum: corner-ray tan ~3.06, sphere tan ~7) spawns two
     # live children per camera ray; with capacity_factor=1 the per-level
     # capacity equals the chunk, so half the live children must be dropped
-    # — and counted.  chunk_rays aligns up to WF_BLOCK (4096), hence the
-    # 128x64 frame (8192 rays = 2 chunks).
+    # — and counted.
     mat = make_material(0.3, (0.2, 0.4, 0.6), (0.9, 0.9, 0.9),
                         opacity=0.0, ior=1.5)
     scene = build_scene(
@@ -97,95 +90,16 @@ def test_wavefront_counts_dropped_rays():
     )
     cfg = RenderConfig(width=128, height=64, max_depth=2, alias_factor=1)
     _, info = render_pixels_wavefront(scene, cfg, chunk_rays=256,
-                                      capacity_factor=1, interpret=True,
-                                      return_info=True)
+                                      capacity_factor=1, return_info=True)
     assert info["dropped"] > 0
-
-
-def test_blocked_compaction_matches_global():
-    # compact_mode="blocked" (per-tile batched sort + cursor-copy
-    # concatenation, _compact_blocked) must reproduce the global-co-sort
-    # render: per-pixel sums are identical up to FP reassociation (seam
-    # fillers carry exact-zero state; split runs scatter-add to the same
-    # pixel).  Multi-chunk + multi-block so seams and the widened segsum
-    # prefix are actually exercised: 128x128 d3 = 16K rays -> chunk 8192
-    # aligns to WF_BLOCK, children 16K rays = 2 blocks per compact.
-    cfg = RenderConfig(width=128, height=128, max_depth=3, alias_factor=1)
-    scene = default_scene()
-    a, ia = render_pixels_wavefront(scene, cfg, interpret=True,
-                                    chunk_rays=8192, capacity_factor=2,
-                                    return_info=True)
-    b, ib = render_pixels_wavefront(scene, cfg, interpret=True,
-                                    chunk_rays=8192, capacity_factor=2,
-                                    compact_mode="blocked",
-                                    return_info=True)
-    assert int(ia["dropped"]) == 0 and int(ib["dropped"]) == 0
-    a, b = np.asarray(a), np.asarray(b)
-    scale = max(a.max(), 1e-30)
-    d = np.abs(a - b)
-    assert (d.max(axis=-1) > 1e-3 * scale).mean() <= 0.005
-    assert d.mean() < 1e-4 * scale
-
-
-def test_blocked_compaction_grads_match_global():
-    # _compact_blocked_ad: the custom backward inverts (per-block sort,
-    # cursor placement) via the inverse-cursor kernel + batched co-sorts.
-    # Gradients must match the global-co-sort AD path up to FP
-    # reassociation (seam-filler cotangents route to dead children whose
-    # downstream derivatives are zero — same argument as _compact_ad's
-    # dead-tail handling).  Frame sized so compaction sees >= 2 blocks.
-    import jax.numpy as jnp
-    import jax.tree_util as jtu
-
-    from raytpu.grad import loss_and_grad_wavefront
-
-    cfg = RenderConfig(width=128, height=128, max_depth=2, alias_factor=1)
-    scene = random_scene(12, num_lights=2, seed=7)
-    target = jnp.zeros((cfg.num_pixels, 3), jnp.float32)
-    lg, gg = loss_and_grad_wavefront(scene, cfg, target, chunk_rays=8192,
-                                     capacity_factor=2.0,
-                                     compact_mode="global")
-    lb, gb = loss_and_grad_wavefront(scene, cfg, target, chunk_rays=8192,
-                                     capacity_factor=2.0,
-                                     compact_mode="blocked")
-    np.testing.assert_allclose(float(lg), float(lb), rtol=1e-5)
-    for (pa, a), (_, b) in zip(jtu.tree_leaves_with_path(gb),
-                               jtu.tree_leaves_with_path(gg)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(float(np.abs(b).max()), 1e-12)
-        assert np.abs(a - b).max() <= 2e-3 * scale, jtu.keystr(pa)
-
-
-def test_blocked_compaction_counts_drops():
-    # Row-granular capacity enforcement still counts every lost live ray
-    # (the overflow scene from test_wavefront_counts_dropped_rays).
-    mat = make_material(0.3, (0.2, 0.4, 0.6), (0.9, 0.9, 0.9),
-                        opacity=0.0, ior=1.5)
-    scene = build_scene(
-        sphere_specs=[((0.0, 0.0, -10.0), 9.9, mat)],
-        light_specs=[((10.0, 30.0, 10.0), (0.5, 0.5, 0.5))],
-    )
-    cfg = RenderConfig(width=128, height=128, max_depth=2, alias_factor=1)
-    _, info = render_pixels_wavefront(scene, cfg, chunk_rays=8192,
-                                      capacity_factor=1, interpret=True,
-                                      compact_mode="blocked",
-                                      return_info=True)
-    _, ref = render_pixels_wavefront(scene, cfg, chunk_rays=8192,
-                                     capacity_factor=1, interpret=True,
-                                     return_info=True)
-    got, want = int(info["dropped"]), int(ref["dropped"])
-    assert got > 0
-    # Row-granular block skipping may drop slightly more than the exact
-    # ray-granular cap (never less lost light than reported).
-    assert got >= want
-    assert got <= want + cfg.num_pixels  # same order of magnitude
 
 
 def test_render_single_wavefront_backend():
     cfg = RenderConfig(width=32, height=24, max_depth=2, alias_factor=1)
     scene = default_scene()
     img = np.asarray(render_single(scene, cfg, backend="wavefront"))
-    ref = np.asarray(render_single(scene, cfg, backend="pallas"))
+    ref = np.asarray(render_single(scene, cfg, backend="pallas",
+                                   interpret=True))
     assert img.shape == (24, 32, 3)
     scale = max(ref.max(), 1e-30)
     d = np.abs(img - ref)
@@ -194,23 +108,21 @@ def test_render_single_wavefront_backend():
 
 
 def test_wavefront_grads_match_dense_kernel():
-    # The differentiable wavefront (per-level custom-VJP kernels + XLA
-    # autodiff through the sort/scatter glue) must agree with the fused
-    # dense gradient kernel — the SAME-kernel-family comparison (grads vs
-    # the jnp tracer amplify forward branch flips and are NOT a valid
-    # oracle; the dense path is itself finite-difference-checked in
-    # tests/test_grad.py).  Multi-chunk + sort-active + gather path
-    # (chunk < frame, depth 3, 24 spheres).
+    # The differentiable wavefront (XLA autodiff through the jnp level
+    # bodies + custom VJPs on the sort/scatter glue) must agree with XLA
+    # autodiff of the dense jnp tracer — the same level body, so the same
+    # gradients up to float reassociation.  Multi-chunk + sort-active +
+    # 24 spheres at depth 3.
     import jax.numpy as jnp
     import jax.tree_util as jtu
 
-    from raytpu.grad import loss_and_grad_pallas, loss_and_grad_wavefront
+    from raytpu.grad import loss_and_grad, loss_and_grad_wavefront
 
     cfg = RenderConfig(width=64, height=48, max_depth=3, alias_factor=1)
     scene = random_scene(24, num_lights=2, seed=5)
     target = jnp.zeros((cfg.num_pixels, 3), jnp.float32)
     lw, gw = loss_and_grad_wavefront(scene, cfg, target, chunk_rays=1024)
-    lp, gp = loss_and_grad_pallas(scene, cfg, target)
+    lp, gp = loss_and_grad(scene, cfg, target)
     np.testing.assert_allclose(float(lw), float(lp), rtol=1e-6)
     for (pa, a), (pb, b) in zip(jtu.tree_leaves_with_path(gw),
                                 jtu.tree_leaves_with_path(gp)):
@@ -220,26 +132,24 @@ def test_wavefront_grads_match_dense_kernel():
 
 
 def test_auto_backend_crossover(monkeypatch):
-    # "auto" on TPU picks the wavefront once per-ray tree work crosses
-    # the measured N x 2^depth boundary (re-swept in round 5 — blocked
-    # compaction moved it well below the old N>=128 & depth>=4 rule);
-    # off-TPU it stays jnp.
+    # "auto" on the GPU picks the wavefront once per-ray tree work crosses
+    # the N x 2^depth boundary, the dense forward kernel below it; on
+    # other platforms it stays jnp.
     import raytpu.render as R
     deep = RenderConfig(width=8, height=8, max_depth=6, alias_factor=1)
     big = random_scene(256)
     assert R.resolve_backend("auto", big, deep) == "jnp"  # on CPU
-    monkeypatch.setattr(R.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(R.jax, "default_backend", lambda: "gpu")
     assert R.resolve_backend("auto", big, deep) == "wavefront"
-    # 3 spheres at depth 6: 192 < 512 — measured dense territory.
+    # 3 spheres at depth 6: 192 < 512 — dense territory.
     assert R.resolve_backend("auto", default_scene(), deep) == "pallas"
     shallow = RenderConfig(width=8, height=8, max_depth=2, alias_factor=1)
-    # 256 x 4 = 1024: the round-5 sweep measured the wavefront 2x faster
-    # here (443 vs 217 ms at 640x480) — was dense under the old rule.
+    # 256 x 4 = 1024: past the crossover.
     assert R.resolve_backend("auto", big, shallow) == "wavefront"
     mid = random_scene(64)
     d4 = RenderConfig(width=8, height=8, max_depth=4, alias_factor=1)
     assert R.resolve_backend("auto", mid, d4) == "wavefront"   # 1024
-    assert R.resolve_backend("auto", mid, shallow) == "pallas"  # 256 tie
+    assert R.resolve_backend("auto", mid, shallow) == "pallas"  # 256
     assert R.resolve_backend("auto", random_scene(16), d4) == "pallas"
     assert R.resolve_backend("auto") == "pallas"  # no scene info
 
@@ -272,12 +182,12 @@ def test_sharded_wavefront_grads_match_single_device():
                              loss_and_grad_wavefront)
     from raytpu.parallel.mesh import make_mesh
 
-    # The differentiated wavefront (checkpoint + scan + per-level
-    # custom-VJP kernels, shard_mapped below) is the heaviest compile in
-    # the suite, and XLA:CPU has segfaulted compiling it ONLY with ~100
-    # tests' accumulated jit caches in the process (reproducibly at this
-    # position, never in isolation).  Dropping the caches first keeps the
-    # suite green; the functional behavior is identical.
+    # The differentiated wavefront (checkpoint + scan, shard_mapped below)
+    # is the heaviest compile in the suite, and XLA:CPU has segfaulted
+    # compiling it ONLY with ~100 tests' accumulated jit caches in the
+    # process (reproducibly at this position, never in isolation).
+    # Dropping the caches first keeps the suite green; the functional
+    # behavior is identical.
     jax.clear_caches()
     _sharded_grad_fn.cache_clear()
 
@@ -331,38 +241,6 @@ def test_interleaved_sharded_wavefront_grads_match_block():
         assert np.abs(a - b).max() <= 2e-3 * scale, jtu.keystr(pa)
 
 
-def test_segsum_scatter_blocked_matches_global():
-    """The blocked boundary compaction inside _segsum_scatter (per-block
-    batched sort + cursor-copy concatenation) must produce the same
-    per-pixel totals as the global-sort form — fillers carry dead keys
-    and zero values.  r large enough for >= 2 blocks (2 x 8192)."""
-    import jax.numpy as jnp
-
-    from raytpu.kernels.wavefront import _segsum_scatter
-
-    rng = np.random.default_rng(11)
-    r, npix, max_run = 16384, 512, 16
-    ids = []
-    p = 0
-    while len(ids) < r - 500 and p < npix:
-        ids.extend([p] * int(rng.integers(1, max_run + 1)))
-        p += int(rng.integers(1, 3))
-    ids = ids[: r - 500] + [0x3FFFFFFF] * (r - len(ids[: r - 500]))
-    pid = jnp.asarray(np.asarray(ids, np.int32))
-    em = tuple(
-        jnp.asarray(np.where(np.asarray(ids) < npix,
-                             rng.normal(size=r), 0.0).astype(np.float32))
-        for _ in range(3))
-    acc = tuple(jnp.asarray(rng.normal(size=npix).astype(np.float32))
-                for _ in range(3))
-    want = _segsum_scatter(acc, em, pid, npix, min(npix, r), max_run)
-    got = _segsum_scatter(acc, em, pid, npix, min(npix, r), max_run,
-                          True, True)   # blocked, interpret
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
-                                   rtol=1e-5, atol=1e-5)
-
-
 def test_segsum_debug_mode_catches_overlong_runs():
     # WF_DEBUG sanitizer (ADVICE r4): a run longer than max_run silently
     # under-reduces without it; with it armed the violation raises.
@@ -396,7 +274,7 @@ def test_segsum_debug_mode_catches_overlong_runs():
 
 def test_fit_scene_wavefront_backend_converges():
     # fit_scene(backend="wavefront"): the large-scene training loop end to
-    # end (interpret mode off-TPU).  Recover a perturbed matte colour — the
+    # end.  Recover a perturbed matte colour — the
     # same smooth-parameter setup as examples/fit_scene.py, incl. the
     # scale-appropriate adam eps (the linear image is ~1e-4 scale).
     import dataclasses
@@ -435,7 +313,7 @@ def test_wavefront_black_matte_grads_not_dropped():
 
     import jax.numpy as jnp
 
-    from raytpu.grad import loss_and_grad_pallas, loss_and_grad_wavefront
+    from raytpu.grad import loss_and_grad, loss_and_grad_wavefront
 
     cfg = RenderConfig(width=64, height=8, max_depth=3, alias_factor=1)
     s = random_scene(24, num_lights=2, seed=5)
@@ -445,7 +323,7 @@ def test_wavefront_black_matte_grads_not_dropped():
     s = dataclasses.replace(s, spheres=sph)
     target = jnp.ones((cfg.num_pixels, 3), jnp.float32) * 1e-4
     _, gw = loss_and_grad_wavefront(s, cfg, target, chunk_rays=1024)
-    _, gp = loss_and_grad_pallas(s, cfg, target)
+    _, gp = loss_and_grad(s, cfg, target)
     a, b = np.asarray(gw.spheres.matte), np.asarray(gp.spheres.matte)
     scale = max(float(np.abs(b).max()), 1e-20)
     assert np.abs(a - b).max() <= 1e-3 * scale

@@ -1,7 +1,7 @@
 """Multi-host validation on one machine: N local processes, each owning a
 slice of virtual CPU devices, joined via jax.distributed — the same code
-path a TPU pod-slice uses (coordinator + per-process device mesh + global
-shard_map + process_allgather).
+path a multi-host deployment uses (coordinator + per-process device mesh +
+global shard_map + process_allgather).
 
 Run (driver): python tools/multiprocess_demo.py
 Worker mode (internal): ... --worker <rank> --procs <n> --port <p>
@@ -37,24 +37,26 @@ def worker(rank: int, procs: int, port: int, backend: str = "jnp") -> int:
     mesh = make_mesh()  # all global devices (procs * 4)
     cfg = RenderConfig(width=64, height=32, max_depth=2, alias_factor=1)
     scene = default_scene()
-    img = render_sharded(scene, cfg, mesh, backend=backend)
+    # The pallas forward kernel runs in the Pallas interpreter on CPU.
+    img = render_sharded(scene, cfg, mesh, backend=backend,
+                         interpret=backend == "pallas")
     full = gather_image(img)
 
-    # Distributed training step with the SELECTED backend's custom-VJP
-    # kernels inside the shard_map body (interpret mode off-TPU): the
-    # scene-parameter gradient psum now crosses the process boundary.
-    # The jnp backend pins exactness; pallas/wavefront pin that the
-    # custom-VJP cotangent psum survives a REAL process boundary (the
-    # single-process 8-device tests cannot catch a cross-process-only
-    # collective bug — VERDICT r4 weak #5).
+    # Distributed training step with the selected backend inside the
+    # shard_map body (pallas is forward-only, so it trains through jnp):
+    # the scene-parameter gradient psum crosses the process boundary.
+    # The jnp backend pins exactness; wavefront pins that its custom-VJP
+    # cotangents survive a REAL process boundary (the single-process
+    # 8-device tests cannot catch a cross-process-only collective bug).
     import jax.numpy as jnp
 
-    from raytpu.grad import (loss_and_grad, loss_and_grad_pallas,
-                             loss_and_grad_sharded, loss_and_grad_wavefront)
+    from raytpu.grad import (loss_and_grad, loss_and_grad_sharded,
+                             loss_and_grad_wavefront)
 
+    grad_backend = "jnp" if backend == "pallas" else backend
     target = jnp.zeros((cfg.num_pixels, 3), jnp.float32)
     dist_loss, dist_grads = loss_and_grad_sharded(scene, cfg, target, mesh,
-                                                  backend=backend)
+                                                  backend=grad_backend)
 
     if rank == 0:
         ref = np.asarray(render_image(scene, cfg))
@@ -73,9 +75,7 @@ def worker(rank: int, procs: int, port: int, backend: str = "jnp") -> int:
               f"{jax.local_device_count()} devices; max diff vs "
               f"single-process render: {diff:.2e}")
 
-        if backend == "pallas":
-            local_loss, local_grads = loss_and_grad_pallas(scene, cfg, target)
-        elif backend == "wavefront":
+        if grad_backend == "wavefront":
             local_loss, local_grads = loss_and_grad_wavefront(scene, cfg,
                                                               target)
         else:
@@ -85,13 +85,13 @@ def worker(rank: int, procs: int, port: int, backend: str = "jnp") -> int:
                         jax.tree_util.tree_leaves(local_grads)):
             gs = max(float(jnp.max(jnp.abs(b))), 1e-12)
             gdiff = max(gdiff, float(jnp.max(jnp.abs(a - b))) / gs)
-        print(f"distributed grad vs single-process ({backend}): loss diff "
+        print(f"distributed grad vs single-process ({grad_backend}): loss diff "
               f"{abs(float(dist_loss) - float(local_loss)):.2e}, "
               f"max rel grad diff {gdiff:.2e}")
-        # jnp: identical math modulo psum order; kernels: same-family
+        # jnp: identical math modulo psum order; wavefront: same-family
         # comparison with the reassociation-tolerant bound the
         # single-process tests use.
-        assert gdiff < (1e-6 if backend == "jnp" else 2e-3), gdiff
+        assert gdiff < (1e-6 if grad_backend == "jnp" else 2e-3), gdiff
         print("MULTIPROCESS_OK")
     return 0
 
@@ -103,8 +103,9 @@ def main() -> int:
     ap.add_argument("--port", type=int, default=57621)
     ap.add_argument("--backend", default="jnp",
                     choices=["jnp", "pallas", "wavefront"],
-                    help="gradient backend inside the shard_map body "
-                         "(kernels run in interpret mode on CPU)")
+                    help="render backend inside the shard_map body (the "
+                         "pallas kernel runs in the Pallas interpreter; "
+                         "it trains through jnp)")
     args = ap.parse_args()
     if args.worker is not None:
         return worker(args.worker, args.procs, args.port, args.backend)

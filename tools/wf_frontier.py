@@ -1,14 +1,14 @@
-"""Config-5 wavefront (chunk, capacity) frontier probe on real TPU.
+"""Config-5 wavefront (chunk, capacity) frontier probe, forward or train
+step, on the GPU.
 
-For each (chunk_rays, capacity_factor) point: compile, render one warm
-config-5 frame (1920x1080 d6 N256 alias3), report wall seconds and the
-dropped-ray counter.  The zero-drop point with the best time is what
-bench.py should ship.  Round-4 context: pixel-major STRIDED chunks give
-every chunk frame-average liveness, so the frontier should sit at a
-lower capacity than the contiguous pixel-major order (which needed 2.0)
-and the round-3 sample-major order (512K x 1.5).
+For each (chunk_rays, capacity_factor) point: compile, run one warm
+config-5 frame (1920x1080 d6 N256 alias 3; `--ad` times the training step
+loss_and_grad_wavefront instead), and report seconds and the dropped-ray
+counter.  The zero-drop point with the best time is a candidate for
+render.WF_AUTO_CHUNK / WF_AUTO_LADDER; a point that drops also biases
+training gradients, so only zero-drop points qualify.
 
-Usage: python tools/wf_frontier.py --points 524288:1.25 524288:1.5 ...
+Usage: python tools/wf_frontier.py [--ad] --points 524288:0.9375 ...
 """
 
 from __future__ import annotations
@@ -25,53 +25,50 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--points", nargs="+",
-                    default=["524288:1.25", "524288:1.5", "262144:1.25",
-                             "262144:1.5"])
+                    default=["524288:0.9375", "524288:1.25", "262144:0.9375",
+                             "1048576:0.9375"])
     ap.add_argument("--ad", action="store_true",
-                    help="probe the AD (train-step) path instead")
+                    help="probe the training step instead of the forward")
     ap.add_argument("--seed", type=int, default=3)
-    ap.add_argument("--num-lights", type=int, default=None,
-                    help="override the scene's light count (bench_all's "
-                         "config-5 scene uses 4 with the default seed)")
-    ap.add_argument("--compact", default="auto",
-                    choices=["auto", "global", "blocked"],
-                    help="compaction mode (round 5: auto resolves to "
-                         "blocked for forward probes; blocked's zero-drop "
-                         "frontier sits one capacity notch above global's "
-                         "— seam fillers)")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from raytpu.config import RenderConfig
+    from raytpu.config import BENCH_CONFIGS
+    from raytpu.grad import loss_and_grad_wavefront
     from raytpu.kernels.wavefront import render_pixels_wavefront
     from raytpu.scene import random_scene
+    from raytpu.utils.compile_cache import enable_compile_cache
 
-    cfg = RenderConfig(width=1920, height=1080, max_depth=6,
-                       alias_factor=3)
-    kw = {} if args.num_lights is None else dict(num_lights=args.num_lights)
-    scene = random_scene(256, seed=args.seed, **kw)
+    enable_compile_cache()
+    cfg = BENCH_CONFIGS["config5"]
+    scene = random_scene(256, seed=args.seed)
+    target = jnp.zeros((cfg.num_pixels, 3), jnp.float32)
     results = []
     for pt in args.points:
         ch_s, cap_s = pt.split(":")
         chunk, cap = int(ch_s), float(cap_s)
 
         def fn():
+            if args.ad:
+                _, grads, info = loss_and_grad_wavefront(
+                    scene, cfg, target, chunk_rays=chunk,
+                    capacity_factor=cap, on_drop="ignore", return_info=True)
+                return jax.block_until_ready(grads), info["dropped"]
             img, info = render_pixels_wavefront(
                 scene, cfg, chunk_rays=chunk, capacity_factor=cap,
-                compact_mode=args.compact, return_info=True)
-            return float(jnp.sum(img)), int(info["dropped"])
+                return_info=True)
+            return jax.block_until_ready(img), int(info["dropped"])
 
         t0 = time.perf_counter()
-        chks, _ = fn()  # compile
+        fn()  # compile
         t_compile = time.perf_counter() - t0
         t0 = time.perf_counter()
-        chks, dropped = fn()
+        _, dropped = fn()
         dt = time.perf_counter() - t0
-        rec = {"chunk": chunk, "cap": cap, "s": round(dt, 2),
-               "dropped": dropped, "compile_s": round(t_compile, 1),
-               "checksum": chks}
+        rec = {"chunk": chunk, "cap": cap, "ad": args.ad, "s": dt,
+               "dropped": dropped, "first_call_s": t_compile}
         results.append(rec)
         print(json.dumps(rec), flush=True)
     best = min((r for r in results if r["dropped"] == 0),
