@@ -57,11 +57,13 @@ def solve_quadratic(a, b, c):
         roots[1] = (-b - sqrt(r))/(2a).
 
     Returns:
-      roots: (..., 2) float32; nroots: (...,) int32 in {0, 1, 2}.
+      roots: (..., 2) float32 (float64 for float64 inputs, the precision
+      check of tools/card_witness.py); nroots: (...,) int32 in {0, 1, 2}.
     """
-    a = jnp.asarray(a, jnp.float32)
-    b = jnp.asarray(b, jnp.float32)
-    c = jnp.asarray(c, jnp.float32)
+    dt = jnp.result_type(a, b, c, jnp.float32)
+    a = jnp.asarray(a, dt)
+    b = jnp.asarray(b, dt)
+    c = jnp.asarray(c, dt)
 
     a_zero = is_zero(a)
     b_zero = is_zero(b)

@@ -45,24 +45,28 @@ def camera_rays(cfg: RenderConfig, sample_i, sample_j, gid=None):
     sits at the origin with intensity (1,1,1).  Passing an explicit `gid`
     block lets a shard_map caller generate only its own pixel shard on
     device — the multi-chip analogue of the per-work-item gid math.
+
+    The rays are float32, or float64 when JAX runs with x64 enabled (the
+    double-precision witness of tools/card_witness.py).
     """
-    w = jnp.float32(cfg.width)
-    h = jnp.float32(cfg.height)
-    xstep = jnp.float32(cfg.image_world_width) / w
-    ystep = jnp.float32(cfg.image_world_height) / h
-    aspect = jnp.float32(cfg.image_world_width) / jnp.float32(cfg.image_world_height)
-    sub = xstep / jnp.float32(cfg.alias_factor)
+    f = jax.dtypes.canonicalize_dtype(jnp.float64).type
+    w = f(cfg.width)
+    h = f(cfg.height)
+    xstep = f(cfg.image_world_width) / w
+    ystep = f(cfg.image_world_height) / h
+    aspect = f(cfg.image_world_width) / f(cfg.image_world_height)
+    sub = xstep / f(cfg.alias_factor)
 
     if gid is None:
         gid = jnp.arange(cfg.num_pixels, dtype=jnp.int32)
-    ix = (gid % cfg.width).astype(jnp.float32)
-    iy = (gid // cfg.width).astype(jnp.float32)
-    px = (ix - w * jnp.float32(0.5)) * xstep
-    py = (h * jnp.float32(0.5) - iy) * ystep
+    ix = (gid % cfg.width).astype(f)
+    iy = (gid // cfg.width).astype(f)
+    px = (ix - w * f(0.5)) * xstep
+    py = (h * f(0.5) - iy) * ystep
 
-    x = (px + jnp.asarray(sample_j, jnp.float32) * sub) * aspect
-    y = py + jnp.asarray(sample_i, jnp.float32) * sub
-    z = jnp.full_like(x, jnp.float32(cfg.zoom))
+    x = (px + jnp.asarray(sample_j, f) * sub) * aspect
+    y = py + jnp.asarray(sample_i, f) * sub
+    z = jnp.full_like(x, f(cfg.zoom))
     return normalize(jnp.stack([x, y, z], axis=-1))
 
 

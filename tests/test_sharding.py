@@ -92,3 +92,13 @@ def test_interleaved_wavefront_multichunk():
                                     interleave=False, wf_opts=wf_opts))
     scale = max(ref.max(), 1e-30)
     assert np.abs(ours - ref).max() < 1e-4 * scale
+
+
+@pytest.mark.parametrize("interpret", [True, False])
+def test_dryrun_multichip(interpret):
+    # The multi-device dry run over four virtual devices: the kernel render
+    # runs in the interpreter only when asked; otherwise "auto" resolves to
+    # the jnp tracer on the CPU (and to the compiled kernel on a GPU mesh).
+    from __graft_entry__ import dryrun_multichip
+
+    dryrun_multichip(4, interpret=interpret)

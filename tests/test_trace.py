@@ -97,3 +97,23 @@ def test_opaque_scene_strict_equals_clean():
     # boundary pixels; everything else must agree tightly.
     close = np.isclose(clean, strict, rtol=1e-4, atol=1e-9)
     assert close.mean() > 0.99, f"agreement {close.mean()}"
+
+
+def test_float64_render_under_x64():
+    # With x64 enabled, a float64 scene renders in float64 end to end (the
+    # camera rays and the quadratic solver included): the precision witness
+    # of tools/card_witness.py.  It meets the float32 render under the
+    # frame contract of tests/test_pallas.py.
+    cfg = RenderConfig(width=32, height=24, max_depth=3, alias_factor=1)
+    f32 = np.asarray(render_image(default_scene(), cfg))
+    with jax.enable_x64(True):
+        s64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     default_scene())
+        img = render_image(s64, cfg)
+        assert img.dtype == jnp.float64
+        assert camera_rays(cfg, 0, 0).dtype == jnp.float64
+    img = np.asarray(img)
+    scale = np.abs(img).max()
+    d = np.abs(f32 - img)
+    assert (d.max(axis=-1) > 1e-2 * scale).mean() <= 0.01
+    assert d.mean() < 1e-3 * scale
